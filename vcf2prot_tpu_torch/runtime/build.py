@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by nvcc, at first use, into ONE shared
+library with a plain C interface, which is loaded with ``ctypes`` (no
+PyTorch headers are compiled, so a build takes seconds, not minutes). The
+library is cached under ``build/vcf2prot_tpu_torch/`` at the checkout root,
+named by a hash of the sources and the flags: an edited source always gets a
+new library, never a stale one (a modification-time check can load a stale
+build when clocks or checkouts disagree). A failed build raises with nvcc's
+output.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without nvcc or a CUDA device.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vcf2prot_tpu_torch")
+
+# sm_90a: the Hopper target with the architecture-specific instructions
+# (wgmma, setmaxnreg) that later kernels may use; -Xptxas=-v writes each
+# kernel's registers and spills into the build log kept beside the library
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+# C entry points: every pointer and the stream as c_void_p (a plain int
+# would be cut to 32 bits), every size as int64; each returns cudaError_t
+SIGNATURES = {
+    "v2p_segmented_copy_i32": (_P, _P, _P, _I64, _I64, _P, _P),
+    "v2p_segmented_copy_i64": (_P, _P, _P, _I64, _I64, _P, _P),
+    "v2p_validate_i32": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
+    "v2p_validate_i64": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
+}
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    """Cache path of the library for the current sources and flags."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libv2p_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+            or "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (not on PATH, nor under CUDA_HOME/bin): the CUDA "
+            "kernels of vcf2prot_tpu_torch cannot be built"
+        )
+    return path
+
+
+def _build(out: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # compile to a private name and rename into place, so a concurrent
+    # process never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}{proc.stdout}"
+            )
+        with open(out + ".log", "w") as fh:
+            fh.write(proc.stderr + proc.stdout)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernels' library, built on first use; declares every entry
+    point's argument and result types."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register and spill report) for the cached
+    library of the current sources; empty before the first build."""
+    log = library_path() + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as fh:
+        return fh.read()
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
