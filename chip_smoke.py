@@ -8,16 +8,32 @@ builds the kernels from ``vcf2prot_tpu_torch/csrc`` itself. Phases, each
 failing the run with a non-zero exit:
 
 1. device: the card's name and power limit, torch / CUDA / nvcc / Triton;
-2. build: K1 (executor) and K2 (validator) through ``runtime/build.py``;
+2. build: K1 (executor), K2 (validator) and K3 (window scorer) through
+   ``runtime/build.py``, one nvcc per source, all started together;
 3. kernel vs plain twin on the card: K1 byte-equal on int32 / int64 /
    empty / edge-case packs, K2 count-equal on valid and corrupted packs,
-   and both timed on one full 256 MiB chunk (CUDA events);
+   and both timed on one full 256 MiB chunk (CUDA events); K3 against its
+   plain version on the candidate windows of a 128 MiB chunk for a 128x1
+   and a 512x3 head (at most 1 bf16 ulp apart; the same fp32 sums in the
+   same order, so bit-equal is expected), timed at the chain's block size,
+   and the chain's stages timed on that chunk;
 4. main path: the port's CLI ``-g gpu -s -v`` on a 1,536-sample x
    2,000-transcript cohort (>= 2 chunks), byte-compared with the host
    engine ``-g mt -s`` (``vcf2prot_tpu.pipeline.run_pipeline`` itself);
 5. ``DEBUG_GPU=1 -a -c -w`` on a 128 x 1,200 cohort, record-compared with
-   ``-g mt``, with the validator launched.
+   ``-g mt``, with the validator launched;
+6. neoantigen path: ``-g gpu --neoantigen_only --neoantigen_k 9
+   --neoantigen_top 200`` on the main cohort (>= 5 chunks of 128 MiB),
+   with K1 and K3 launched at least once a chunk, against ``-g gpu`` and
+   ``-g mt --neoantigen_k 9 --neoantigen_device`` (FASTAs + the cohort
+   batch, the same scorer): rows equal, scores within rtol 1e-5 + atol
+   1e-6 (TSVs print 6 decimals), rows swapped only within that;
+7. wide head: ``--neoantigen_only`` with a 512x3 head written to an .npz,
+   on the 128 x 1,200 cohort, against ``-g mt --neoantigen_k 9`` (fp32
+   host math) within 5e-3 (bf16 rounding; up to 2.5e-3 measured on the
+   CPU over 100 k random 9-mers).
 
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -26,6 +42,7 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -34,6 +51,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHUNK_BYTES = 256 * 1024 * 1024
+NEO_CHUNK_BYTES = 128 * 1024 * 1024  # the device-resident chain's default
+NEO_K, NEO_TOP = 9, 200
+# the scaffold head of init_params and a wide one
+HEADS = {"128x1": dict(hidden=128, depth=1),
+         "512x3": dict(hidden=512, depth=3)}
+# bf16 on the card against fp32 host math (see the module docstring)
+HOST_ORACLE_TOL = 5e-3
 # the main-path cohort: chromosome scale in transcripts (2,000), 1,536
 # samples -> ~0.7 GB of result tape, three 256 MiB chunks
 MAIN_SAMPLES, MAIN_TRANSCRIPTS, MAIN_SEED = 1536, 2000, 1
@@ -121,21 +145,22 @@ def write_cohort(workdir, gen, n_samples, n_transcripts, seed):
 
 
 def _cuda_ms(fn, reps=10):
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after one warm-up,
+    and the last call's result."""
     import torch
 
-    fn()
+    out = fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
 def _edge_packs():
@@ -208,16 +233,27 @@ def _k2_pair(dst, length, srcb, combined_len, res_len):
             validate_reference(dst, length, srcb, combined_len, res_len))
 
 
-def phase_kernels(card, big_vcf, big_fa):
+def compile_main(big_vcf, big_fa):
+    """The main cohort's proteome blob and haplotype programs (native)."""
+    from vcf2prot_tpu.compiler.haplotype import RefBlob
+    from vcf2prot_tpu.compiler.qc import default_qc
+    from vcf2prot_tpu.frontend.fasta import read_fasta
+    from vcf2prot_tpu.native_bridge import compile_cohort_native, load_native
+
+    check(load_native() is not None, "the native host tier did not load")
+    ref_seqs = read_fasta(big_fa)
+    blob = RefBlob.from_ref_seqs(ref_seqs)
+    _p, flat, _w = compile_cohort_native(big_vcf, ref_seqs, blob,
+                                         default_qc(), alt_pool="auto")
+    return blob, flat
+
+
+def phase_kernels(card, blob, flat):
     """K1 and K2 against their twins on the card; returns the kernels'
     measured numbers and the main cohort's chunk count."""
     import numpy as np
     import torch
 
-    from vcf2prot_tpu.compiler.haplotype import RefBlob
-    from vcf2prot_tpu.compiler.qc import default_qc
-    from vcf2prot_tpu.frontend.fasta import read_fasta
-    from vcf2prot_tpu.native_bridge import compile_cohort_native, load_native
     from vcf2prot_tpu.pipeline import _chunk_indices
     from vcf2prot_tpu.runtime.pack import pack_cohort
     from vcf2prot_tpu_torch.runtime.gpu_engine import (
@@ -230,11 +266,6 @@ def phase_kernels(card, big_vcf, big_fa):
         validate_reference,
     )
 
-    check(load_native() is not None, "the native host tier did not load")
-    ref_seqs = read_fasta(big_fa)
-    blob = RefBlob.from_ref_seqs(ref_seqs)
-    _p, flat, _w = compile_cohort_native(big_vcf, ref_seqs, blob,
-                                         default_qc(), alt_pool="auto")
     chunks = _chunk_indices(flat, CHUNK_BYTES, pair_aligned=True)
     n_chunks = len(chunks)
     k1_err = k2_err = 0
@@ -291,13 +322,12 @@ def phase_kernels(card, big_vcf, big_fa):
 
     # one full chunk of the main cohort, timed
     packed = pack_cohort([flat[i] for i in chunks[0]], blob)
-    del flat
     combined, dst, srcb = _device_pack(packed, blob)
     total = packed.total_res
     err = _k1_err(combined, dst, srcb, total)
     check(err == 0, f"K1 differs from its twin on the full chunk ({err})")
-    k1_ms = _cuda_ms(lambda: segmented_copy(combined, dst, srcb, total))
-    k1_plain = _cuda_ms(
+    k1_ms, _ = _cuda_ms(lambda: segmented_copy(combined, dst, srcb, total))
+    k1_plain, _ = _cuda_ms(
         lambda: segmented_copy_reference(combined, dst, srcb, total)
     )
     length = to_device(
@@ -306,9 +336,9 @@ def phase_kernels(card, big_vcf, big_fa):
     )
     got, want = _k2_pair(dst, length, srcb, combined.numel(), total)
     check(got == want == 0, f"K2 {got} / twin {want} on the full chunk")
-    k2_ms = _cuda_ms(lambda: validate_on_device(
+    k2_ms, _ = _cuda_ms(lambda: validate_on_device(
         dst, length, srcb, combined.numel(), total))
-    k2_plain = _cuda_ms(lambda: validate_reference(
+    k2_plain, _ = _cuda_ms(lambda: validate_reference(
         dst, length, srcb, combined.numel(), total))
     n = dst.numel()
     moved = 2 * total + 4 * 2 * n  # tape read + write, dst + srcb
@@ -327,6 +357,143 @@ def phase_kernels(card, big_vcf, big_fa):
         "validate_on_device": dict(max_abs_err=k2_err, ms=k2_ms,
                                plain_ms=k2_plain),
     }
+
+
+def _ulps(a, b):
+    """Largest distance in bf16 units in the last place between two bf16
+    tensors of values >= 0 (ReLU outputs), where the bit patterns order
+    like the values."""
+    import torch
+
+    bits = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+    return int(bits.max()) if bits.numel() else 0
+
+
+def phase_k3(card, blob, flat):
+    """K3 against its plain version on the candidate windows of the main
+    cohort's first 128 MiB chunk, and the chain's stages timed on that
+    chunk; returns K3's numbers and the cohort's 128 MiB chunk count."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu.downstream.device_resident import (
+        _chunk_annotation_spans,
+    )
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu.pipeline import _chunk_indices
+    from vcf2prot_tpu.runtime.pack import pack_cohort
+    from vcf2prot_tpu_torch.downstream import device_resident as dr
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        ScoringHead,
+        window_layer1,
+        window_layer1_reference,
+    )
+    from vcf2prot_tpu_torch.runtime.gpu_engine import (
+        GpuEngine,
+        segmented_copy,
+        to_device,
+    )
+
+    chunks = _chunk_indices(flat, NEO_CHUNK_BYTES, pair_aligned=True)
+    progs = [flat[i] for i in chunks[0]]
+    t0 = time.perf_counter()
+    packed = pack_cohort(progs, blob)
+    pack_s = time.perf_counter() - t0
+    ann = _chunk_annotation_spans(progs, packed.spans)
+    check(packed.contiguous and ann is not None,
+          "the first 128 MiB chunk cannot run on the card")
+    executor = GpuEngine(blob, "cuda")
+    tape, dst, srcb = executor.launch(packed)
+    ann_s, ann_e = (to_device(a, "cuda") for a in ann)
+    cand = dr.candidate_mask(tape, dst, srcb, len(blob.data), ann_s, ann_e,
+                             NEO_K)
+    pos = torch.nonzero(cand).squeeze(1)
+    m, total = pos.numel(), packed.total_res
+    print(f"K3 input: chunk 1 of {len(chunks)} of <= {NEO_CHUNK_BYTES} "
+          f"bytes: {total} bytes, {m} candidate {NEO_K}-windows")
+    measured = {}
+    for name, shape in HEADS.items():
+        head = ScoringHead.from_params(
+            init_params(NEO_K, seed=3, **shape)
+        ).cuda()
+        blk = head.block_rows(m)
+        p = pos[:blk]
+        got = window_layer1(tape, p, NEO_K, head.table, head.b1)
+        want = window_layer1_reference(tape, p, NEO_K, head.table, head.b1)
+        torch.cuda.synchronize()
+        ulps = _ulps(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.isfinite(got.float()).all(), f"K3 {name}: not finite")
+        check(ulps <= 1, f"K3 {name} differs from its plain version by "
+                         f"{ulps} bf16 ulps (max |d| {err})")
+        del got, want
+        ms, _ = _cuda_ms(lambda: window_layer1(tape, p, NEO_K, head.table,
+                                            head.b1))
+        plain, _ = _cuda_ms(lambda: window_layer1_reference(
+            tape, p, NEO_K, head.table, head.b1))
+        out_bytes = p.numel() * head.table.shape[1] * 2
+        print(f"K3 {name} on {card}: {p.numel()} windows (block of {blk}): "
+              f"{ulps} bf16 ulps, max |d| {err}; {ms:.4f} ms "
+              f"({out_bytes / ms / 1e6:.1f} GB/s of {out_bytes} output "
+              f"bytes), plain {plain:.4f} ms")
+        measured[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    torch.cuda.empty_cache()
+
+    # where the time goes in one chunk, default head, stage by stage
+    head = ScoringHead.from_params(init_params(NEO_K)).cuda()
+    blk = head.block_rows(m)
+    combined = executor._combined(packed)
+    stages = {"host pack (host clock)": pack_s * 1e3}
+    stages["upload dst, srcb, annotations"], _ = _cuda_ms(lambda: [
+        to_device(a, "cuda") for a in (packed.dst, packed.src_biased, *ann)
+    ])
+    stages["K1 execute"], _ = _cuda_ms(
+        lambda: segmented_copy(combined, dst, srcb, total))
+    stages["candidate mask"], _ = _cuda_ms(lambda: dr.candidate_mask(
+        tape, dst, srcb, len(blob.data), ann_s, ann_e, NEO_K))
+    stages["compaction (nonzero)"], _ = _cuda_ms(
+        lambda: torch.nonzero(cand).squeeze(1))
+    stages["K3 layer 1"], h1 = _cuda_ms(lambda: [
+        head.layer1(tape, pos[s:s + blk]) for s in range(0, m, blk)])
+    stages["fp32 products, layers 2..N"], parts = _cuda_ms(
+        lambda: [head.rest(h) for h in h1])
+    del h1
+    scores = torch.cat(parts)
+    sample_starts = to_device(np.asarray(
+        [packed.spans[2 * i][1] for i in range(len(progs) // 2)], np.int64
+    ), "cuda")
+    stages["rank: 2 stable sorts + select + pack"], rows = _cuda_ms(
+        lambda: dr.pack_rows(*dr.rank_rows(tape, pos, scores, sample_starts,
+                                           NEO_K, NEO_TOP)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fetched = rows.cpu()
+    stages["row fetch (host clock)"] = (time.perf_counter() - t0) * 1e3
+    device = sum(v for k, v in stages.items() if "host" not in k)
+    print(f"chain stages per 128 MiB chunk on {card} (ms; CUDA events, "
+          f"median of 10, default 128x1 head, {m} candidates, "
+          f"{len(progs) // 2} samples, rows {tuple(fetched.shape)}): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; device stages total {device:.4f}")
+    t_run = []
+    eng = dr.DeviceNeoantigenEngine(blob, NEO_K, top=NEO_TOP)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.run_chunk(progs)
+        t_run.append(time.perf_counter() - t0)
+    print(f"run_chunk of that chunk (host clock, pack to decoded rows): "
+          f"{', '.join(f'{t:.4f}' for t in t_run)} s")
+    names = [f"S{i}" for i in range(len(progs) // 2)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tsv_") as out:
+        t0 = time.perf_counter()
+        dr.write_device_neoantigen_reports(out, names, progs, blob, NEO_K,
+                                           top=NEO_TOP)
+        write_s = time.perf_counter() - t0
+    print(f"write_device_neoantigen_reports of that chunk (host clock, "
+          f"engine set-up, run_chunk and {len(names)} TSVs): {write_s:.4f} s")
+    del tape, dst, srcb, cand, pos, scores, combined, executor, eng
+    torch.cuda.empty_cache()
+    return len(chunks), measured
 
 
 def _run_cli(vcf, fa, out, engine, *flags):
@@ -392,6 +559,80 @@ def phase_debug(workdir, vcf, fa):
           f"-g gpu {gpu_s:.3f} s, -g mt {mt_s:.3f} s; K2 launches {k2}")
 
 
+def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
+    """The device-resident chain through the CLI, against the cohort batch
+    of -g gpu and -g mt (the same scorer); returns the path's launches."""
+    from vcf2prot_tpu_torch.downstream.compare import reports_disagree
+    from vcf2prot_tpu_torch.downstream.device_resident import (
+        candidate_positions,
+    )
+    from vcf2prot_tpu_torch.downstream.scoring import window_layer1
+    from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
+
+    flags = ("--neoantigen_k", str(NEO_K), "--neoantigen_top", str(NEO_TOP))
+    chain = os.path.join(workdir, "neo_chain")
+    segmented_copy.launches = window_layer1.launches = 0
+    candidate_positions.wait_s = 0.0
+    chain_s = _run_cli(vcf, fa, chain, "gpu", "--neoantigen_only", "-v",
+                       *flags)
+    launches = {"segmented_copy": segmented_copy.launches,
+                "window_layer1": window_layer1.launches}
+    wait_s = candidate_positions.wait_s
+    check(n_neo_chunks >= 5,
+          f"main cohort has {n_neo_chunks} neo chunk(s), not >= 5")
+    for name, n in launches.items():
+        check(n >= n_neo_chunks,
+              f"{name} launched {n} times for {n_neo_chunks} chunks")
+    files = os.listdir(chain)
+    check(not any(f.endswith(".fasta") for f in files),
+          "--neoantigen_only wrote FASTAs")
+    check(len(files) == MAIN_SAMPLES, f"{len(files)} TSVs, not {MAIN_SAMPLES}")
+    batch = os.path.join(workdir, "neo_batch")
+    batch_s = _run_cli(vcf, fa, batch, "gpu", "--neoantigen_device", "-v",
+                       *flags)
+    host = os.path.join(workdir, "neo_mt")
+    mt_s = _run_cli(vcf, fa, host, "mt", "--neoantigen_device", "-v",
+                    *flags)
+    for other, what in ((batch, "-g gpu"), (host, "-g mt")):
+        msg = reports_disagree(chain, other, atol=1e-6, rtol=1e-5)
+        check(msg is None, f"chain against {what} --neoantigen_device: {msg}")
+    n_rows = sum(len(open(os.path.join(chain, f)).read().splitlines()) - 1
+                 for f in files)
+    print(f"neoantigen path on {card}: {len(files)} TSVs, {n_rows} rows, "
+          f"equal to the cohort batch of -g gpu and -g mt (rtol 1e-5); "
+          f"-g gpu --neoantigen_only {chain_s:.3f} s wall "
+          f"({wait_s:.3f} s of it waiting on the per-chunk candidate "
+          f"count), -g gpu --neoantigen_device {batch_s:.3f} s, "
+          f"-g mt --neoantigen_device {mt_s:.3f} s; launches {launches} "
+          f"for {n_neo_chunks} chunks")
+    for d in (chain, batch, host):
+        shutil.rmtree(d)
+    return launches
+
+
+def phase_wide(workdir, vcf, fa):
+    """A 512x3 head from an .npz through the chain, against the host's fp32
+    per-sample report."""
+    import numpy as np
+
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream.compare import reports_disagree
+
+    npz = os.path.join(workdir, "head_512x3.npz")
+    np.savez(npz, **init_params(NEO_K, seed=5, **HEADS["512x3"]))
+    flags = ("--neoantigen_only", "--neoantigen_k", str(NEO_K),
+             "--neoantigen_params", npz)
+    chain = os.path.join(workdir, "wide_chain")
+    host = os.path.join(workdir, "wide_mt")
+    chain_s = _run_cli(vcf, fa, chain, "gpu", *flags)
+    mt_s = _run_cli(vcf, fa, host, "mt", *flags)
+    msg = reports_disagree(chain, host, atol=HOST_ORACLE_TOL)
+    check(msg is None, f"512x3 chain against fp32 host math: {msg}")
+    print(f"wide head: 512x3 --neoantigen_only agrees with -g mt fp32 host "
+          f"math within {HOST_ORACLE_TOL}; -g gpu {chain_s:.3f} s, "
+          f"-g mt {mt_s:.3f} s")
+
+
 def main():
     import torch
 
@@ -415,16 +656,25 @@ def main():
         # cohorts share variants, and stays ~60 MB
         big = write_cohort(workdir, "shared_cohort", MAIN_SAMPLES,
                            MAIN_TRANSCRIPTS, MAIN_SEED)
-        n_chunks, measured = phase_kernels(card, *big)
-        # the main path: every launch counter from zero, read after
+        blob, flat = compile_main(*big)
+        n_chunks, measured = phase_kernels(card, blob, flat)
+        n_neo_chunks, k3 = phase_k3(card, blob, flat)
+        measured["window_layer1"] = k3["128x1"]
+        del blob, flat
+        # each path: its launch counters from zero, read just after
         segmented_copy.launches = 0
-        validate_on_device.launches = 0
         phase_main(card, workdir, *big, n_chunks)
+        launches = {"segmented_copy": segmented_copy.launches}
+        shutil.rmtree(os.path.join(workdir, "gpu"))
+        shutil.rmtree(os.path.join(workdir, "mt"))
+        launches["window_layer1"] = phase_neo(
+            card, workdir, *big, n_neo_chunks)["window_layer1"]
         small = write_cohort(workdir, "random_cohort", DEBUG_SAMPLES,
                              DEBUG_TRANSCRIPTS, DEBUG_SEED)
+        validate_on_device.launches = 0
         phase_debug(workdir, *small)
-        launches = {"segmented_copy": segmented_copy.launches,
-                    "validate_on_device": validate_on_device.launches}
+        launches["validate_on_device"] = validate_on_device.launches
+        phase_wide(workdir, *small)
     check(all(launches.values()), f"a kernel of the path never ran: "
           f"{launches}")
     check("jax" not in sys.modules, "jax was imported")
@@ -433,7 +683,9 @@ def main():
         "segmented_copy": ("vcf2prot_tpu_torch/csrc/executor.cu",
                            "vcf2prot_tpu/runtime/tpu_engine.py:119"),
         "validate_on_device": ("vcf2prot_tpu_torch/csrc/validator.cu",
-                           "vcf2prot_tpu/runtime/kernels.py:38"),
+                               "vcf2prot_tpu/runtime/kernels.py:38"),
+        "window_layer1": ("vcf2prot_tpu_torch/csrc/scorer.cu",
+                          "vcf2prot_tpu/downstream/scoring.py:147"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -200,11 +200,23 @@ def test_profile_flag_writes_torch_trace(cohort, tmp_path):
 
 
 def test_neoantigen_options_are_refused(cohort, tmp_path):
+    """The --neoantigen_* options run on every engine now (the neoantigen
+    slice of the port); what is still refused is a head that does not fit
+    the peptide length, as in the reference (load_params)."""
+    from vcf2prot_tpu.downstream.scoring import init_params
+
     vcf, fasta = cohort
+    npz = str(tmp_path / "head_k8.npz")
+    np.savez(npz, **init_params(8))
     for engine in (Engine.GPU, Engine.MT):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            run_port(vcf, fasta, tmp_path / engine.value, engine=engine,
-                     neoantigen_k=9)
+        res = run_port(vcf, fasta, tmp_path / engine.value, engine=engine,
+                       neoantigen_k=9)
+        assert res.n_samples == 6
+        assert sum(f.endswith(".neoantigens.tsv")
+                   for f in os.listdir(tmp_path / engine.value)) == 6
+        with pytest.raises(ValueError, match="w1 expects"):
+            run_port(vcf, fasta, tmp_path / f"{engine.value}_bad",
+                     engine=engine, neoantigen_k=9, neoantigen_params=npz)
 
 
 def test_import_leaves_jax_out():
@@ -213,6 +225,9 @@ def test_import_leaves_jax_out():
         "import vcf2prot_tpu_torch, vcf2prot_tpu_torch.cli, "
         "vcf2prot_tpu_torch.pipeline, vcf2prot_tpu_torch.runtime.gpu_engine, "
         "vcf2prot_tpu_torch.runtime.kernels, vcf2prot_tpu_torch.runtime.build\n"
+        "import vcf2prot_tpu_torch.downstream.device_resident, "
+        "vcf2prot_tpu_torch.downstream.cohort, "
+        "vcf2prot_tpu_torch.downstream.compare\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -245,9 +260,20 @@ def test_cli_gpu_without_cuda_exits(cohort, tmp_path, monkeypatch):
 
 
 def test_cli_neoantigen_not_yet_ported(cohort, tmp_path):
+    """Formerly refused, now ported: ``-g mt --neoantigen_k 9`` writes the
+    JAX package's per-sample TSVs byte for byte, and ``--neoantigen_only``
+    without ``-k`` exits with the reference's message."""
+    from vcf2prot_tpu.cli import main as jax_main
+
+    assert cli.main(cli_args(cohort, tmp_path / "port", "-g", "mt",
+                             "--neoantigen_k", "9")) == 0
+    assert jax_main(cli_args(cohort, tmp_path / "ref", "-g", "mt",
+                             "--neoantigen_k", "9")) == 0
+    assert_same_files(tmp_path / "port", tmp_path / "ref")
     with pytest.raises(SystemExit) as exc:
-        cli.main(cli_args(cohort, tmp_path, "-g", "mt", "--neoantigen_k", "9"))
-    assert "not yet ported" in str(exc.value.code)
+        cli.main(cli_args(cohort, tmp_path / "only", "-g", "mt",
+                          "--neoantigen_only"))
+    assert exc.value.code == "--neoantigen_only requires --neoantigen_k K"
 
 
 def test_cli_host_engine_matches_jax_cli(cohort, tmp_path):

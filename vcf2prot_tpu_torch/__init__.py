@@ -2,11 +2,13 @@
 
 Same product as ``vcf2prot_tpu``: one personalized-proteome FASTA per sample
 from a phased, bcftools/csq-annotated VCF and a reference proteome. The host
-tier (VCF frontend, compiler, packing, writers, stats) is imported from
+tier (VCF frontend, compiler, packing, writers, stats, neoantigen candidate
+collection and the scoring head's numpy weights) is imported from
 ``vcf2prot_tpu``, whose host modules import no JAX; this package owns only
 what touches the device: the engine selection, the GPU executor and
-validator (hand-written CUDA kernels under ``csrc/``), the pipeline's device
-branch and the CLI.
+validator, the neoantigen scoring head, cohort batch and device-resident
+chain (``downstream/``; hand-written CUDA kernels under ``csrc/``), the
+pipeline's device branches and the CLI.
 
     from vcf2prot_tpu_torch import PipelineConfig, run_pipeline, Engine
     result = run_pipeline(PipelineConfig(

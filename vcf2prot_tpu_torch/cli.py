@@ -33,12 +33,30 @@ def build_parser() -> argparse.ArgumentParser:
     actions["--profile"].help = (
         "write a torch.profiler trace of the execute stage to DIR/trace.json"
     )
+    actions["--neoantigen_k"].help = (
+        "also write <proband>.neoantigens.tsv: mutation-overlapping K-mers "
+        "per haplotype, ranked by the scoring head (fp32 host math per "
+        "sample unless --neoantigen_device or --neoantigen_only)"
+    )
+    actions["--neoantigen_device"].help = (
+        "score the cohort's neoantigen candidates in one bf16 batch on the "
+        "CUDA card (on the CPU when there is none) instead of per-sample "
+        "host math"
+    )
+    actions["--neoantigen_only"].help = (
+        "skip FASTA output; the run's product is the neoantigen TSVs "
+        "(needs --neoantigen_k). With -g gpu/auto the whole chain "
+        "(execute, masks, scoring, top-k) stays on the card: only "
+        "[samples, top] rows are copied to the host"
+    )
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     check_paths(args)
+    if args.neoantigen_only and not args.neoantigen_k:
+        sys.exit("--neoantigen_only requires --neoantigen_k K")
     try:
         engine = Engine.from_str(args.engine)
     except ValueError as err:

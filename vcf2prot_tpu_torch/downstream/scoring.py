@@ -1,0 +1,250 @@
+"""Peptide scoring head of the port, with its first layer as a CUDA kernel.
+
+The port of ``vcf2prot_tpu/downstream/scoring.py:119-181``: one-hot
+residues -> per-position embedding -> a dense(relu) stack -> dense(1). The
+weights are the JAX package's numpy dictionary (``init_params`` /
+``load_params``, shared); :meth:`ScoringHead.from_params` carries them
+across.
+
+Numerics follow the reference's: the embedding is folded into the first
+layer in fp32 and cast to bf16 (``folded``, ``[k*21, H]``); every product
+takes bf16 operands and gives an fp32 result, to which the bias is added
+and ReLU applied in fp32. Layer 1 is K3 (``csrc/scorer.cu``), a sum of the
+k folded rows that a window's residues select, in i order
+(:func:`window_layer1`). Layers 2..N are fp32 products of bf16-valued
+operands: the product of two bf16 values is exact in fp32, so with TF32
+off this is the reference's bf16 x bf16 -> fp32 product (a bf16 product on
+the card would round its result to bf16 before the bias add).
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+from torch import nn
+
+from vcf2prot_tpu.downstream.device_resident import dense_blk
+from vcf2prot_tpu.downstream.peptides import _alphabet_lut
+from vcf2prot_tpu.downstream.scoring import (  # noqa: F401 (re-exported)
+    VOCAB,
+    init_params,
+    layer_names,
+    load_params,
+)
+from vcf2prot_tpu.runtime.pack import pad_to_bucket
+
+from ..runtime.build import check_launch, load_kernels
+from .peptides import as_tensor, neoantigen_candidates
+
+_LUT = torch.from_numpy(_alphabet_lut()).long()
+# K3 stages one column of the k*21-row table in shared memory at the least
+# (k*21*2 bytes + the 256-byte lookup, at most 227 KB a block)
+MAX_K3_K = (227 * 1024 - 256) // (VOCAB * 2)
+
+
+def _check_layer1_args(buf, pos, k, table, b1) -> None:
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
+        raise TypeError("buf must be a contiguous 1-D uint8 tensor")
+    if (pos.dtype not in (torch.int32, torch.int64) or pos.dim() != 1
+            or not pos.is_contiguous()):
+        raise TypeError("pos must be a contiguous 1-D int32/int64 tensor")
+    if (table.dtype != torch.bfloat16 or table.dim() != 2
+            or not table.is_contiguous() or table.shape[0] != k * VOCAB):
+        raise TypeError(
+            f"table must be a contiguous bf16 [k*{VOCAB}, H] tensor, got "
+            f"{table.dtype} {tuple(table.shape)} for k={k}"
+        )
+    if (b1.dtype != torch.float32 or b1.shape != (table.shape[1],)
+            or not b1.is_contiguous()):
+        raise TypeError("b1 must be a contiguous fp32 [H] tensor")
+    if len({t.device for t in (buf, pos, table, b1)}) != 1:
+        raise ValueError("buf, pos, table and b1 must share a device")
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    if pos.numel():
+        lo, hi = (int(v) for v in torch.aminmax(pos))
+        if lo < 0 or hi + k > buf.numel():
+            raise ValueError(
+                f"windows [{lo}, {hi} + {k}) leave the {buf.numel()}-byte "
+                "buffer"
+            )
+
+
+def window_layer1_reference(buf, pos, k: int, table, b1) -> torch.Tensor:
+    """Plain torch version of K3: ``h1[m] = bf16(relu(sum_i float(table[i*21
+    + lut[buf[pos[m] + i]]]) + b1))``, the k rows summed in fp32 in i
+    order. Memory is ``[m, H]``, never ``[m, k, H]``."""
+    idx = pos.long()[:, None] + torch.arange(k, device=buf.device)
+    rows = _LUT.to(buf.device)[buf[idx].long()]
+    rows += torch.arange(k, device=buf.device) * VOCAB
+    acc = table[rows[:, 0]].float()
+    for i in range(1, k):
+        acc = acc + table[rows[:, i]].float()
+    return torch.relu(acc + b1).to(torch.bfloat16)
+
+
+def window_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
+    """First scoring layer over the k-byte windows ``buf[pos[m] : pos[m] +
+    k]``; returns bf16 ``[M, H]``.
+
+    ``buf`` u8, ``pos`` int32/int64 (every window inside ``buf``), ``table``
+    the folded bf16 ``[k*21, H]`` table, ``b1`` fp32 ``[H]``, all on one
+    device. CUDA tensors run K3 on the current stream; CPU tensors run
+    :func:`window_layer1_reference`.
+    """
+    _check_layer1_args(buf, pos, k, table, b1)
+    if buf.device.type == "cpu":
+        return window_layer1_reference(buf, pos, k, table, b1)
+    if buf.device.type != "cuda":
+        raise ValueError(f"unsupported device {buf.device}")
+    if k > MAX_K3_K:
+        raise ValueError(f"K3 takes k <= {MAX_K3_K}, got {k}")
+    m, h_dim = pos.numel(), table.shape[1]
+    out = torch.empty((m, h_dim), dtype=torch.bfloat16, device=buf.device)
+    if m == 0 or h_dim == 0:
+        return out
+    lib = load_kernels()
+    fn = lib.v2p_window_layer1_i32 if pos.dtype == torch.int32 else (
+        lib.v2p_window_layer1_i64
+    )
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(
+            fn(buf.data_ptr(), pos.data_ptr(), m, k, table.data_ptr(),
+               b1.data_ptr(), h_dim, out.data_ptr(), stream),
+            "window scorer",
+        )
+    window_layer1.launches += 1
+    return out
+
+
+window_layer1.launches = 0
+
+
+def tf32_matmul_on() -> bool:
+    """True when fp32 products on the card may run in TF32 (any of the
+    three switches torch has had for it)."""
+    mm = torch.backends.cuda.matmul
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return bool(
+            mm.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"
+            or getattr(mm, "fp32_precision", "none") == "tf32"
+        )
+
+
+class ScoringHead(nn.Module):
+    """The scoring head of one peptide length ``k``, on one device.
+
+    Buffers: ``table`` (bf16 ``[k*21, H1]``, the folded first layer, made
+    once per head), ``b1`` (fp32), then for each later layer ``wI`` (fp32
+    holding bf16 values) and ``bI`` (fp32); the last is the ``[H, 1]``
+    output head.
+    """
+
+    def __init__(self, k: int, table, b1, weights):
+        super().__init__()
+        self.k = int(k)
+        self.register_buffer("table", table)
+        self.register_buffer("b1", b1)
+        self.layers = []  # indices of the layers after the first
+        for i, (w, b) in enumerate(weights, start=2):
+            self.register_buffer(f"w{i}", w)
+            self.register_buffer(f"b{i}", b)
+            self.layers.append(i)
+
+    @classmethod
+    def from_params(cls, params: dict) -> "ScoringHead":
+        """The port's head of a JAX-package weight dictionary (``embed``,
+        ``w1``/``b1`` .. ``wN``/``bN``); the fold is computed here, once,
+        in fp32 on the CPU."""
+        names = layer_names(params)
+        if len(names) < 2:
+            raise ValueError("the head needs w1 and an output layer")
+        embed = torch.as_tensor(np.asarray(params["embed"], np.float32))
+        w1 = torch.as_tensor(np.asarray(params[names[0]], np.float32))
+        e_dim, h_dim = embed.shape[1], w1.shape[1]
+        if w1.shape[0] % e_dim:
+            raise ValueError(
+                f"w1 has {w1.shape[0]} inputs, not a multiple of embed "
+                f"width {e_dim}"
+            )
+        k = w1.shape[0] // e_dim
+        table = torch.einsum(
+            "ve,keh->kvh", embed, w1.reshape(k, e_dim, h_dim)
+        ).reshape(k * VOCAB, h_dim).to(torch.bfloat16).contiguous()
+        b1 = torch.as_tensor(np.asarray(params["b1"], np.float32))
+        # later weights are the products' bf16 operands, kept as fp32
+        weights = [
+            (torch.as_tensor(np.asarray(params[n], np.float32))
+             .to(torch.bfloat16).float(),
+             torch.as_tensor(np.asarray(params["b" + n[1:]], np.float32)))
+            for n in names[1:]
+        ]
+        return cls(k, table, b1.contiguous(), weights)
+
+    def block_rows(self, m: int) -> int:
+        """Rows scored at once for ``m`` windows: the reference's
+        ``dense_blk``, which holds the widest fp32 activation ``[rows, H]``
+        near 256 MB."""
+        shapes = {"w1": self.table}
+        shapes.update({f"w{i}": getattr(self, f"w{i}") for i in self.layers})
+        return dense_blk(pad_to_bucket(m), shapes)
+
+    def layer1(self, buf, pos) -> torch.Tensor:
+        """bf16 ``[M, H1]`` of the windows ``buf[pos : pos + k]`` (K3)."""
+        return window_layer1(buf, pos, self.k, self.table, self.b1)
+
+    def rest(self, h1) -> torch.Tensor:
+        """fp32 scores ``[M]`` of first-layer activations (bf16)."""
+        if h1.device.type == "cuda" and tf32_matmul_on():
+            raise RuntimeError(
+                "TF32 is enabled for fp32 products "
+                "(torch.backends.cuda.matmul.allow_tf32 or "
+                "torch.set_float32_matmul_precision); the scoring head "
+                "needs full fp32 products"
+            )
+        h = h1.float()
+        for i in self.layers:
+            w, b = getattr(self, f"w{i}"), getattr(self, f"b{i}")
+            out = h.to(torch.bfloat16).float() @ w + b
+            h = out if i == self.layers[-1] else torch.relu(out)
+        return h[:, 0]
+
+    def score_positions(self, buf, pos) -> torch.Tensor:
+        """fp32 scores of the windows ``buf[pos : pos + k]``, in blocks of
+        :meth:`block_rows` rows."""
+        out = torch.empty(pos.numel(), dtype=torch.float32, device=buf.device)
+        blk = self.block_rows(pos.numel())
+        for s in range(0, pos.numel(), blk):
+            out[s:s + blk] = self.rest(self.layer1(buf, pos[s:s + blk]))
+        return out
+
+
+def score_windows(windows, head: ScoringHead) -> torch.Tensor:
+    """Score uint8 residue windows ``[m, k]``; returns fp32 ``[m]`` on the
+    head's device."""
+    w = as_tensor(windows, head.table.device)
+    m, k = w.shape
+    if k != head.k:
+        raise ValueError(f"windows are {k}-mers, the head scores {head.k}")
+    pos = torch.arange(m, dtype=torch.int64, device=w.device) * k
+    return head.score_positions(w.reshape(-1).contiguous(), pos)
+
+
+def rank_neoantigen_candidates(prog, tape, k: int = 9, head=None,
+                               top: int = 50):
+    """Mutated k-mers of a haplotype tape, scored and ranked: ``(windows
+    u8[top, k], starts i32[top], scores f32[top])`` by descending score,
+    ties in ascending position."""
+    windows, starts = neoantigen_candidates(prog, tape, k)
+    if windows.shape[0] == 0:
+        return windows, starts, torch.zeros(0, dtype=torch.float32)
+    if head is None:
+        head = ScoringHead.from_params(init_params(k)).to(windows.device)
+    scores = score_windows(windows, head)
+    order = torch.argsort(scores, descending=True, stable=True)[:top]
+    order = order.to(windows.device)
+    return windows[order], starts[order], scores[order]

@@ -1,20 +1,28 @@
 """End-to-end pipeline of the port.
 
 The host engines (``st``/``mt``) are ``vcf2prot_tpu.pipeline.run_pipeline``
-itself, whose host branches import no JAX. The GPU engine runs the same host
-prologue (parse + compile, stats, int-map dumps) and then streams
-pair-aligned chunks through :class:`GpuEngine`: one chunk is dispatched to
-the device while the previous one is collected and its samples written, so
-host memory stays bounded by the chunk size.
+itself, whose host branches import no JAX, except with
+``--neoantigen_device``: the reference scores that cohort batch with JAX,
+so the port runs the host loop itself and scores with its own head (on
+the card when one is present, else its plain version on the CPU). The GPU
+engine runs the same host prologue (parse + compile, stats, int-map dumps)
+and then either
 
-Not ported yet: the ``--neoantigen_*`` outputs (refused on every engine) and
-the multi-device branch of the JAX pipeline.
+* streams pair-aligned chunks through :class:`GpuEngine`: one chunk is
+  dispatched to the device while the previous one is collected and its
+  samples written (FASTAs, and the per-sample or cohort-batch neoantigen
+  reports), so host memory stays bounded by the chunk size; or
+* with ``--neoantigen_only``, runs the device-resident chain
+  (``downstream/device_resident.py``), which fetches only per-sample rows.
+
+Not ported yet: the multi-device branch of the JAX pipeline.
 """
 from __future__ import annotations
 
 import os
 import sys
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, fields
 
 from vcf2prot_tpu import pipeline as _ref
@@ -24,12 +32,14 @@ from vcf2prot_tpu.frontend import fasta
 from vcf2prot_tpu.io.writers import PersonalizedProteome, write_intmap2json
 from vcf2prot_tpu.pipeline import (
     DEFAULT_CHUNK_RES_BYTES,
+    DEFAULT_NEO_CHUNK_RES_BYTES,
     PipelineResult,
     _chunk_indices,
     _validate_host_programs,
     _write_stats_tables,
     parse_vcf_to_int_maps,
 )
+from vcf2prot_tpu.runtime import cpu_engine
 from vcf2prot_tpu.runtime.engine import Engine as _RefEngine
 from vcf2prot_tpu.stats.summary import compute_stats
 from vcf2prot_tpu.utils.timers import StageTimer
@@ -49,15 +59,6 @@ class PipelineConfig(_ref.PipelineConfig):
     # torch device of the GPU engine; the CLI keeps the default, the CPU
     # tests set "cpu" to run the kernels' plain twins
     device: str = "cuda"
-
-
-def _refuse_unported(cfg) -> None:
-    if (cfg.neoantigen_k or cfg.neoantigen_device or cfg.neoantigen_only
-            or cfg.neoantigen_params):
-        raise NotImplementedError(
-            "the --neoantigen_* outputs are not yet ported to "
-            "vcf2prot_tpu_torch (run them with python -m vcf2prot_tpu)"
-        )
 
 
 def _host_config(cfg, engine: Engine):
@@ -209,10 +210,21 @@ def _compile(cfg, qc, timer):
     return ref_seqs, blob, [pp.proband for pp in proband_programs], flat
 
 
+def _resolve(cfg) -> Engine:
+    if cfg.engine is not Engine.AUTO:
+        return cfg.engine
+    # a neoantigen-only run returns just top-k rows to the host, as in the
+    # reference (vcf2prot_tpu/pipeline.py:323-335)
+    return resolve_auto(
+        workload="neoantigen_device"
+        if (cfg.neoantigen_k and cfg.neoantigen_only) else "fasta"
+    )
+
+
 def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
-    _refuse_unported(cfg)
-    engine = resolve_auto() if cfg.engine is Engine.AUTO else cfg.engine
-    if engine is not Engine.GPU:
+    engine = _resolve(cfg)
+    neo_k = cfg.neoantigen_k
+    if engine is not Engine.GPU and not (neo_k and cfg.neoantigen_device):
         with torch_trace(cfg.profile_dir or None):
             return _ref.run_pipeline(_host_config(cfg, engine))
 
@@ -222,6 +234,71 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
     ref_seqs, blob, proband_names, flat = _compile(cfg, qc, timer)
     if qc.debug_cpu_exec:
         _validate_host_programs(flat)
+    neo_params = None
+    if neo_k and cfg.neoantigen_params:
+        from vcf2prot_tpu.downstream.scoring import load_params
+
+        neo_params = load_params(cfg.neoantigen_params, neo_k)
+
+    if neo_k and cfg.neoantigen_only and engine is Engine.GPU:
+        # execute, mask, score and rank on the card; only [samples, top]
+        # rows come back
+        from .downstream.device_resident import (
+            write_device_neoantigen_reports,
+        )
+
+        with timer.stage("Neoantigen scoring (device-resident)"):
+            with torch_trace(cfg.profile_dir or None):
+                write_device_neoantigen_reports(
+                    cfg.outdir, proband_names, flat, blob, neo_k,
+                    params=neo_params, top=cfg.neoantigen_top,
+                    chunk_res_bytes=(
+                        cfg.chunk_res_bytes
+                        if cfg.chunk_res_bytes is not None
+                        else DEFAULT_NEO_CHUNK_RES_BYTES
+                    ),
+                    device=cfg.device,
+                )
+        for p in flat:
+            result.n_haplotype_seqs += len(p.annotations)
+            result.total_output_bytes += p.res_len
+        result.n_samples = len(proband_names)
+        result.durations = dict(timer.durations)
+        return result
+
+    neo_acc = None
+    if neo_k and cfg.neoantigen_device:
+        from vcf2prot_tpu.downstream.cohort import CohortCandidates
+
+        neo_acc = CohortCandidates(neo_k)
+
+    def finish_sample(i, h1, h2):
+        hap1, hap2 = flat[2 * i], flat[2 * i + 1]
+        if not cfg.neoantigen_only:
+            PersonalizedProteome(
+                proband_names[i], h1, hap1.annotations, h2, hap2.annotations,
+            ).write(
+                cfg.outdir,
+                write_all=cfg.write_all,
+                write_compressed=cfg.write_compressed,
+                ref_seqs=ref_seqs,
+            )
+        if neo_acc is not None:
+            neo_acc.add(i, 1, hap1, h1)
+            neo_acc.add(i, 2, hap2, h2)
+        elif neo_k:
+            from vcf2prot_tpu.downstream.report import write_neoantigen_report
+
+            write_neoantigen_report(
+                cfg.outdir, proband_names[i], (hap1, hap2), (h1, h2), neo_k,
+                params=neo_params, top=cfg.neoantigen_top,
+            )
+        return len(hap1.annotations) + len(hap2.annotations), h1.size + h2.size
+
+    def account(stats):
+        for n_seqs, n_bytes in stats:
+            result.n_haplotype_seqs += n_seqs
+            result.total_output_bytes += n_bytes
 
     chunk_bytes = (
         cfg.chunk_res_bytes
@@ -230,27 +307,49 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
     )
     with timer.stage("Generating and writing personalized genomes"):
         with torch_trace(cfg.profile_dir or None):
-            for chunk, outs in _device_chunk_results(
-                flat, blob, chunk_bytes, qc.debug_device_exec, cfg.device,
-                pair_aligned=True,
-            ):
-                for j in range(0, len(chunk), 2):
-                    i = chunk[j] // 2
-                    hap1, hap2 = flat[2 * i], flat[2 * i + 1]
-                    h1, h2 = outs[j], outs[j + 1]
-                    PersonalizedProteome(
-                        proband_names[i], h1, hap1.annotations,
-                        h2, hap2.annotations,
-                    ).write(
-                        cfg.outdir,
-                        write_all=cfg.write_all,
-                        write_compressed=cfg.write_compressed,
-                        ref_seqs=ref_seqs,
+            if engine is Engine.GPU:
+                for chunk, outs in _device_chunk_results(
+                    flat, blob, chunk_bytes, qc.debug_device_exec, cfg.device,
+                    pair_aligned=True,
+                ):
+                    account(
+                        finish_sample(chunk[j] // 2, outs[j], outs[j + 1])
+                        for j in range(0, len(chunk), 2)
                     )
-                    result.n_haplotype_seqs += (
-                        len(hap1.annotations) + len(hap2.annotations)
+            else:
+                # the reference's host loop (vcf2prot_tpu/pipeline.py:
+                # 459-478): fused execute + write per sample
+                run = (cpu_engine.execute_tasks_fast if engine is Engine.MT
+                       else cpu_engine.execute_tasks)
+
+                def one_sample(i):
+                    return finish_sample(
+                        i, run(flat[2 * i], blob), run(flat[2 * i + 1], blob)
                     )
-                    result.total_output_bytes += h1.size + h2.size
+
+                indices = range(len(proband_names))
+                if engine is Engine.MT and not cfg.single_thread_writes:
+                    with ThreadPoolExecutor(
+                        max_workers=cfg.num_threads or os.cpu_count()
+                    ) as pool:
+                        account(pool.map(one_sample, indices))
+                else:
+                    account(map(one_sample, indices))
+
+    if neo_acc is not None:
+        from .downstream.cohort import write_reports_from_candidates
+
+        if engine is Engine.GPU:
+            device = cfg.device
+        else:
+            import torch
+
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        with timer.stage("Scoring neoantigen candidates (device batch)"):
+            write_reports_from_candidates(
+                cfg.outdir, proband_names, flat, neo_acc.arrays(), neo_k,
+                params=neo_params, top=cfg.neoantigen_top, device=device,
+            )
 
     result.n_samples = len(proband_names)
     result.durations = dict(timer.durations)

@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by nvcc, at first use, into ONE shared
-library with a plain C interface, which is loaded with ``ctypes`` (no
-PyTorch headers are compiled, so a build takes seconds, not minutes). The
-library is cached under ``build/vcf2prot_tpu_torch/`` at the checkout root,
-named by a hash of the sources and the flags: an edited source always gets a
-new library, never a stale one (a modification-time check can load a stale
-build when clocks or checkouts disagree). A failed build raises with nvcc's
-output.
+Every ``csrc/*.cu`` source is compiled by nvcc, at first use and in parallel,
+and linked into ONE shared library with a plain C interface, which is
+loaded with ``ctypes`` (no PyTorch headers are compiled, so a build takes
+seconds, not minutes). The library is cached under
+``build/vcf2prot_tpu_torch/`` at the checkout root, named by a hash of the
+sources and the flags: an edited source always gets a new library, never a
+stale one (a modification-time check can load a stale build when clocks or
+checkouts disagree). A failed build raises with nvcc's output.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without nvcc or a CUDA device.
@@ -29,11 +29,14 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vcf2prot_tpu_torch")
 
 # sm_90a: the Hopper target with the architecture-specific instructions
 # (wgmma, setmaxnreg) that later kernels may use; -Xptxas=-v writes each
-# kernel's registers and spills into the build log kept beside the library
+# kernel's registers and spills into the build log kept beside the library.
+# Each source compiles to an object in its own nvcc process, all started
+# together, and one more nvcc links the objects into the library.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,6 +47,8 @@ SIGNATURES = {
     "v2p_segmented_copy_i64": (_P, _P, _P, _I64, _I64, _P, _P),
     "v2p_validate_i32": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
     "v2p_validate_i64": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
+    "v2p_window_layer1_i32": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P),
+    "v2p_window_layer1_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P),
 }
 
 _LIB = None
@@ -56,7 +61,7 @@ def sources() -> list:
 
 def library_path() -> str:
     """Cache path of the library for the current sources and flags."""
-    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256("\0".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(os.path.basename(path).encode() + b"\0")
         with open(path, "rb") as fh:
@@ -79,26 +84,49 @@ def _nvcc() -> str:
     return path
 
 
+def _wait(cmd, proc) -> str:
+    """nvcc's output of a finished process; raises if it failed."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{stderr}{stdout}"
+        )
+    return stderr + stdout
+
+
 def _build(out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # compile to a private name and rename into place, so a concurrent
-    # process never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    # build in a private directory and rename the library into place, so a
+    # concurrent process never loads a half-written one
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc = _nvcc()
+    procs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}"
-            )
+        objs = []
+        for src in sources():
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )))
+            objs.append(obj)
+        log = "".join(_wait(cmd, proc) for cmd, proc in procs)
+        lib = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *LINK_FLAGS, "-o", lib, *objs]
+        log += _wait(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
         with open(out + ".log", "w") as fh:
-            fh.write(proc.stderr + proc.stdout)
-        os.replace(tmp, out)
+            fh.write(log)
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for _cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def load_kernels() -> ctypes.CDLL:

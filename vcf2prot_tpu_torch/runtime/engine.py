@@ -8,6 +8,7 @@ it; here the accelerator is a CUDA device, ``gpu``/``cuda`` name it, and
 """
 from __future__ import annotations
 
+import os
 from enum import Enum
 
 
@@ -38,8 +39,26 @@ class Engine(Enum):
         )
 
 
-def resolve_auto() -> Engine:
-    """``auto``: the CUDA engine when a CUDA device is visible, else MT."""
+WORKLOADS = ("fasta", "neoantigen_device")
+
+
+def resolve_auto(workload: str = "fasta") -> Engine:
+    """``auto``: the CUDA engine when a CUDA device is visible, else MT.
+
+    ``workload`` is the reference's (``vcf2prot_tpu.runtime.engine.
+    resolve_auto``): ``"fasta"`` when every tape lands on host disk,
+    ``"neoantigen_device"`` when only top-k rows come back. The reference
+    gates ``"fasta"`` on a probed device-to-host rate; that probe is not
+    ported, so both workloads pick the card when one is visible.
+    ``VCF2PROT_PREFER_DEVICE=0`` gives MT without looking for a device, as
+    in the reference.
+    """
+    if workload not in WORKLOADS:
+        raise ValueError(
+            f"unknown workload {workload!r} (expected one of {WORKLOADS})"
+        )
+    if os.environ.get("VCF2PROT_PREFER_DEVICE") == "0":
+        return Engine.MT
     import torch
 
     return Engine.GPU if torch.cuda.is_available() else Engine.MT

@@ -182,7 +182,7 @@ class GpuEngine:
                 return (packed, None, programs, None)
         if packed.total_res == 0:
             return (packed, None, programs, good_mask)
-        return (packed, self._launch(packed), programs, good_mask)
+        return (packed, self.launch(packed)[0], programs, good_mask)
 
     def collect(self, handle) -> list:
         """One device-to-host copy of the chunk's tape, split per program."""
@@ -220,8 +220,10 @@ class GpuEngine:
             self._combined_ref = packed.alt
         return combined
 
-    def _launch(self, packed: PackedCohort) -> torch.Tensor:
-        """Upload + launch one packed chunk; returns the device tape."""
+    def launch(self, packed: PackedCohort):
+        """Upload + launch one contiguous packed chunk without waiting for
+        the device; returns ``(tape, dst, srcb)``, the result tape and the
+        uploaded task arrays (the neoantigen chain reads them again)."""
         combined = self._combined(packed)
         dst = to_device(packed.dst, self.device)
         srcb = to_device(packed.src_biased, self.device)
@@ -239,4 +241,4 @@ class GpuEngine:
                     "invariant violations"
                 )
         _check_spans(packed, combined.numel())
-        return segmented_copy(combined, dst, srcb, packed.total_res)
+        return segmented_copy(combined, dst, srcb, packed.total_res), dst, srcb
