@@ -8,8 +8,9 @@ builds the kernels from ``vcf2prot_tpu_torch/csrc`` itself. Phases, each
 failing the run with a non-zero exit:
 
 1. device: the card's name and power limit, torch / CUDA / nvcc / Triton;
-2. build: K1 (executor), K2 (validator) and K3 (window scorer) through
-   ``runtime/build.py``, one nvcc per source, all started together;
+2. build: K1 (executor), K2 (validator), K3 (window scorer) and K4 (its
+   gradient) through ``runtime/build.py``, one nvcc per source, all
+   started together;
 3. kernel vs plain twin on the card: K1 byte-equal on int32 / int64 /
    empty / edge-case packs, K2 count-equal on valid and corrupted packs,
    and both timed on one full 256 MiB chunk (CUDA events); K3 against its
@@ -31,7 +32,26 @@ failing the run with a non-zero exit:
 7. wide head: ``--neoantigen_only`` with a 512x3 head written to an .npz,
    on the 128 x 1,200 cohort, against ``-g mt --neoantigen_k 9`` (fp32
    host math) within 5e-3 (bf16 rounding; up to 2.5e-3 measured on the
-   CPU over 100 k random 9-mers).
+   CPU over 100 k random 9-mers);
+8. K4 (the gradient of K3; run with phase 3's checks) against its plain
+   version on the card: 128x1 and 512x3 heads, k 8, 9, 11, 30 (a smaller column slice) and 600
+   (dynamic shared memory), int32 and int64 positions, windows at odd byte
+   offsets of a tape, 4,096 rows (a training batch) and 524,288 (the
+   chain's block); fp32 within rtol 1e-4 + atol 1e-5 * max|ref|, two
+   launches bit-equal, both timed;
+9. training: the synthetic MHC task of
+   ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
+   epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
+   through ``vcf2prot_tpu_torch.downstream.train.fit``: holdout AUC within
+   [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
+   synth_mhc_training.tsv``, 128x1 above 8x1; fit walls and step times;
+10. the trained 512x3 head saved with ``save_params`` and served by
+   ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
+   against ``-g mt``'s fp32 host report, and the training forward against
+   ``ScoringHead`` on the card;
+11. a 512x3 fit of 1,000,000 9-mers for 2 epochs (windows/s), two 128x1
+   fits bit-equal, and 4 steps on the card against the same 4 steps on
+   the CPU (plain K3/K4) within 5e-3.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON summary; the last line is
@@ -58,11 +78,34 @@ HEADS = {"128x1": dict(hidden=128, depth=1),
          "512x3": dict(hidden=512, depth=3)}
 # bf16 on the card against fp32 host math (see the module docstring)
 HOST_ORACLE_TOL = 5e-3
+# a trained head's scores reach ~28, and a bf16 scorer's error grows with
+# them: the JAX package's own bf16 scorer differs from the fp32 host math
+# by 0.099 (3.8e-3 of the largest score) on a 512x3 head trained on the
+# synthetic MHC task (CPU). A trained head is held to 1e-2 of its largest
+# score (at least 1), which is HOST_ORACLE_TOL's 5e-3 and more at a random
+# head's scale.
+TRAINED_TOL = 1e-2
 # the main-path cohort: chromosome scale in transcripts (2,000), 1,536
 # samples -> ~0.7 GB of result tape, three 256 MiB chunks
 MAIN_SAMPLES, MAIN_TRANSCRIPTS, MAIN_SEED = 1536, 2000, 1
 # the debug cohort: the round-5 benchmark's size and seed
 DEBUG_SAMPLES, DEBUG_TRANSCRIPTS, DEBUG_SEED = 128, 1200, 20260817
+# K4's row counts: a training batch and the chain's block
+K4_ROWS = (4096, 524288)
+# training: automation_scripts/train_synth_mhc.py's task and heads
+MHC_N, MHC_SEED, MHC_EPOCHS, MHC_BATCH = 100_000, 3, 20, 4096
+TRAIN_HEADS = {"8x1": dict(hidden=8, depth=1),
+               "128x1": dict(hidden=128, depth=1),
+               "512x1": dict(hidden=512, depth=1),
+               "512x3": dict(hidden=512, depth=3)}
+MHC_ARTIFACT = os.path.join(ROOT, "automation_scripts", "artifacts",
+                            "synth_mhc_training.tsv")
+# the scale public MHC-I predictors train on: about a million peptides
+BIG_N, BIG_EPOCHS = 1_000_000, 2
+# residues, an 'other' byte and the '.' filler
+WINDOW_BYTES = b"ACDEFGHIKLMNPQRSTVWYX."
+# the card the K4 and training phases run on
+DEV = "cuda"
 
 
 def fail(msg: str):
@@ -610,27 +653,332 @@ def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
     return launches
 
 
-def phase_wide(workdir, vcf, fa):
-    """A 512x3 head from an .npz through the chain, against the host's fp32
-    per-sample report."""
-    import numpy as np
+def _reports(d):
+    from vcf2prot_tpu_torch.downstream.compare import read_report
 
-    from vcf2prot_tpu.downstream.scoring import init_params
+    return {f: dict(read_report(os.path.join(d, f))) for f in os.listdir(d)}
+
+
+def _largest_score(d):
+    return max((abs(v) for rows in _reports(d).values()
+                for v in rows.values()), default=0.0)
+
+
+def _largest_gap(a, b):
+    """Largest |score difference| of the rows two report directories
+    share."""
+    ra, rb = _reports(a), _reports(b)
+    return max((abs(v - rb[f][key]) for f, rows in ra.items()
+                for key, v in rows.items() if key in rb.get(f, {})),
+               default=0.0)
+
+
+def phase_wide(workdir, vcf, fa, npz, what, atol=None):
+    """A head from an .npz through the chain, against the host's fp32
+    per-sample report within ``atol`` (default: TRAINED_TOL of the largest
+    score)."""
     from vcf2prot_tpu_torch.downstream.compare import reports_disagree
 
-    npz = os.path.join(workdir, "head_512x3.npz")
-    np.savez(npz, **init_params(NEO_K, seed=5, **HEADS["512x3"]))
     flags = ("--neoantigen_only", "--neoantigen_k", str(NEO_K),
              "--neoantigen_params", npz)
     chain = os.path.join(workdir, "wide_chain")
     host = os.path.join(workdir, "wide_mt")
     chain_s = _run_cli(vcf, fa, chain, "gpu", *flags)
     mt_s = _run_cli(vcf, fa, host, "mt", *flags)
-    msg = reports_disagree(chain, host, atol=HOST_ORACLE_TOL)
-    check(msg is None, f"512x3 chain against fp32 host math: {msg}")
-    print(f"wide head: 512x3 --neoantigen_only agrees with -g mt fp32 host "
-          f"math within {HOST_ORACLE_TOL}; -g gpu {chain_s:.3f} s, "
+    if atol is None:
+        atol = TRAINED_TOL * max(1.0, _largest_score(host))
+    msg = reports_disagree(chain, host, atol=atol)
+    check(msg is None, f"{what} chain against fp32 host math: {msg}")
+    print(f"{what} head: --neoantigen_only agrees with -g mt fp32 host "
+          f"math within {atol} (rows in common: max |d| "
+          f"{_largest_gap(chain, host)}); -g gpu {chain_s:.3f} s, "
           f"-g mt {mt_s:.3f} s")
+    shutil.rmtree(chain)
+    shutil.rmtree(host)
+
+
+def phase_k4(card):
+    """K4 against its plain version on the card; returns its numbers by
+    (head, rows) at k = 9 with int64 positions."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+
+    rng = np.random.default_rng(11)
+    alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
+    tape_len = 1 << 23
+    tape = torch.from_numpy(
+        alphabet[rng.integers(0, len(alphabet), tape_len)]).to(DEV)
+    dtypes = (torch.int32, torch.int64)
+    cases = [(h, k, dt, K4_ROWS[0]) for h in HEADS for k in (8, 9, 11, 30)
+             for dt in dtypes]
+    cases += [(h, 9, dt, K4_ROWS[1]) for h in HEADS for dt in dtypes]
+    cases.append(("128x1", 600, torch.int64, K4_ROWS[0]))
+    measured = {}
+    worst = 0.0
+    for name, k, dt, m in cases:
+        what = f"K4 {name} k={k} {str(dt)[6:]} M={m}"
+        head = sc.ScoringHead.from_params(
+            init_params(k, seed=k, **HEADS[name])).to(DEV)
+        # windows at odd byte offsets of the tape
+        pos = torch.from_numpy(
+            rng.integers(0, (tape_len - k) // 2, m) * 2 + 1).to(dt).to(DEV)
+        h1 = sc.window_layer1(tape, pos, k, head.table, head.b1)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(k * 1000 + m)
+        g = torch.randn(h1.shape, generator=gen,
+                        device=DEV).to(torch.bfloat16)
+        got = sc.window_layer1_backward(tape, pos, k, h1, g)
+        again = sc.window_layer1_backward(tape, pos, k, h1, g)
+        want = sc.window_layer1_backward_reference(tape, pos, k, h1, g)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b, c in zip(got, again, want):
+            check(torch.equal(a, b), f"{what}: two launches differ")
+            check(bool(torch.isfinite(a).all()), f"{what}: not finite")
+            bad = (a - c).abs() > 1e-4 * c.abs() + 1e-5 * float(c.abs().max())
+            err = max(err, float((a - c).abs().max()))
+            check(not bool(bad.any()), f"{what} differs from its plain "
+                                       f"version (max |d| {err})")
+        worst = max(worst, err)
+        if k == 9 and dt == torch.int64:
+            # the launches alone, as autograd makes them (the forward
+            # checked the windows' bounds)
+            ms, _ = _cuda_ms(lambda: sc._layer1_backward(tape, pos, k, h1, g))
+            plain, _ = _cuda_ms(lambda: sc.window_layer1_backward_reference(
+                tape, pos, k, h1, g))
+            measured[(name, m)] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+            print(f"{what} on {card}: max |d| {err}; {ms:.4f} ms "
+                  f"({4 * h1.numel() / ms / 1e6:.1f} GB/s of h1 and g), "
+                  f"plain {plain:.4f} ms")
+        del h1, g, got, again, want
+    torch.cuda.empty_cache()
+    print(f"K4 vs plain: {len(cases)} cases within rtol 1e-4 + atol 1e-5 * "
+          f"max|ref| (max |d| {worst}), two launches bit-equal in each")
+    return measured
+
+
+def _artifact_aucs():
+    """The JAX package's holdout AUCs by head ("8x1", ...) from
+    automation_scripts/artifacts/synth_mhc_training.tsv."""
+    out = {}
+    with open(MHC_ARTIFACT) as fh:
+        for line in fh:
+            cols = line.rstrip("\n").split("\t")
+            if line.startswith("H") and len(cols) == 6:
+                out[cols[0][1:]] = float(cols[3])
+    return out
+
+
+def _mhc_task(n):
+    """The synthetic MHC task and its 80/20 split."""
+    from vcf2prot_tpu.downstream.synth_mhc import make_task
+
+    win, labels, truth = make_task(n=n, seed=MHC_SEED)
+    n_tr = n - n // 5
+    return win, labels, truth, n_tr
+
+
+def phase_train(card):
+    """The port's fit on the synthetic MHC task for the four heads (the
+    training path); returns the trained weights by head and the path's
+    K3 and K4 launches."""
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu.downstream.synth_mhc import oracle_auc
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        ScoringHead,
+        score_windows,
+        window_layer1,
+        window_layer1_backward,
+    )
+
+    win, labels, truth, n_tr = _mhc_task(MHC_N)
+    ceiling = oracle_auc(truth[n_tr:], labels[n_tr:])
+    artifact = _artifact_aucs()
+    steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
+    # one step first, so that no fit wall holds cuBLAS's and the
+    # allocator's start-up
+    train.fit(win[:MHC_BATCH], labels[:MHC_BATCH], epochs=1,
+              batch_size=MHC_BATCH, device=DEV)
+    window_layer1.launches = window_layer1_backward.launches = 0
+    aucs, trained = {}, {}
+    for name, shape in TRAIN_HEADS.items():
+        t0 = time.perf_counter()
+        trained[name] = train.fit(
+            win[:n_tr], labels[:n_tr], epochs=MHC_EPOCHS,
+            batch_size=MHC_BATCH, seed=0,
+            params=init_params(NEO_K, seed=0, **shape), device=DEV)
+        wall = time.perf_counter() - t0
+        head = ScoringHead.from_params(trained[name]).to(DEV)
+        scores = score_windows(win[n_tr:], head).cpu().numpy()
+        aucs[name] = train.auc(scores, labels[n_tr:])
+        print(f"train {name} on {card}: holdout AUC {aucs[name]:.4f} "
+              f"(JAX package's artifact {artifact[name]:.4f}, oracle "
+              f"ceiling {ceiling:.4f}); fit wall {wall:.3f} s for {steps} "
+              f"steps of {MHC_BATCH} ({wall / steps * 1e3:.3f} ms a step, "
+              f"host clock)")
+        check(artifact[name] - 0.01 <= aucs[name] <= ceiling + 0.02,
+              f"{name} holdout AUC {aucs[name]:.4f} outside "
+              f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
+    launches = {"window_layer1": window_layer1.launches,
+                "window_layer1_backward": window_layer1_backward.launches}
+    check(aucs["128x1"] > aucs["8x1"],
+          f"128x1 AUC {aucs['128x1']} not above 8x1 {aucs['8x1']}")
+    print(f"training path launches: {launches}")
+    return trained, launches
+
+
+def _step_ms(params, reps=20):
+    """Median device time of one training step of MHC_BATCH rows: steps
+    back to back, a CUDA event at each step's end."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import TrainableHead
+
+    win, labels, _truth, _n = _mhc_task(MHC_BATCH)
+    head = TrainableHead.from_params(params).to(DEV)
+    opt = torch.optim.Adam(head.parameters(), lr=1e-3)
+    w = torch.from_numpy(win).to(DEV)
+    y = torch.from_numpy(labels).to(DEV)
+    m = torch.ones_like(y)
+    for _ in range(3):
+        train.train_step(head, opt, w, y, m, True)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        train.train_step(head, opt, w, y, m, True)
+        e.record()
+    events[-1].synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
+
+
+def phase_step_times(card, k4):
+    """Step times of each head, the share of K4 in a step, and the cost of
+    K3's per-call bounds check (its one wait per step)."""
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+
+    step = {name: _step_ms(init_params(NEO_K, seed=0, **shape))
+            for name, shape in TRAIN_HEADS.items()}
+    print(f"median step on {card} ({MHC_BATCH} rows, CUDA events, 20 steps "
+          f"back to back): " + "; ".join(f"{n} {v:.4f} ms"
+                                         for n, v in step.items()))
+    for name in HEADS:
+        k4_ms = k4[(name, K4_ROWS[0])]["ms"]
+        print(f"K4 share of a {name} step: {k4_ms:.4f} of {step[name]:.4f} "
+              f"ms ({100 * k4_ms / step[name]:.1f}%)")
+    real = sc._check_window_bounds
+    sc._check_window_bounds = lambda buf, pos, k: None
+    try:
+        free = _step_ms(init_params(NEO_K, seed=0))
+    finally:
+        sc._check_window_bounds = real
+    print(f"K3 bounds check (one wait per step), 128x1: step "
+          f"{step['128x1']:.4f} ms with it, {free:.4f} ms without "
+          f"(measurement only)")
+
+
+def phase_serve_trained(card, workdir, vcf, fa, params):
+    """The trained 512x3 head through the serving chain, and the training
+    forward against the serving head on the card."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        ScoringHead,
+        TrainableHead,
+        fold_table,
+        score_windows,
+    )
+
+    npz = os.path.join(workdir, "trained_512x3.npz")
+    train.save_params(npz, params)
+    phase_wide(workdir, vcf, fa, npz, "trained 512x3")
+    win, _labels, _truth, n_tr = _mhc_task(MHC_N)
+    trainable = TrainableHead.from_params(params).to(DEV)
+    serving = ScoringHead.from_params(params).to(DEV)
+    with torch.no_grad():
+        got = trainable(torch.from_numpy(win[n_tr:]).to(DEV))
+        table = fold_table(trainable.embed, trainable.w1)
+    want = score_windows(win[n_tr:], serving)
+    d = float((got - want).abs().max())
+    t_diff = table.float() - serving.table.float()
+    rel = float((t_diff.abs() / serving.table.float().abs()
+                 .clamp_min(1e-30)).max())
+    print(f"trained 512x3 on {card}: training forward against ScoringHead "
+          f"(fold on the CPU) max |d| {d} over {want.numel()} windows "
+          f"(max |score| {float(want.abs().max())}); folded tables differ "
+          f"in {int((t_diff != 0).sum())} of {table.numel()} entries, max "
+          f"relative {rel}")
+    check(rel <= 2.0 ** -7, f"the card's fold differs by more than 1 bf16 "
+                            f"ulp ({rel})")
+    tol = TRAINED_TOL * max(1.0, float(want.abs().max()))
+    check(d <= tol, f"training and serving forwards differ by {d} > {tol}")
+
+
+def phase_train_checks(card):
+    """A fit at a million peptides, reproducibility on the card, and 4
+    steps on the card against the same 4 on the CPU."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        ScoringHead,
+        score_windows,
+    )
+
+    win, labels, _truth, n_tr = _mhc_task(BIG_N)
+    t0 = time.perf_counter()
+    big = train.fit(win[:n_tr], labels[:n_tr], epochs=BIG_EPOCHS,
+                    batch_size=MHC_BATCH, seed=0,
+                    params=init_params(NEO_K, seed=0, **HEADS["512x3"]),
+                    device=DEV)
+    wall = time.perf_counter() - t0
+    scores = score_windows(win[n_tr:], ScoringHead.from_params(big).to(DEV))
+    big_auc = train.auc(scores.cpu().numpy(), labels[n_tr:])
+    print(f"train 512x3 on {card}: {n_tr} 9-mers x {BIG_EPOCHS} epochs in "
+          f"{wall:.3f} s ({n_tr * BIG_EPOCHS / wall:.0f} windows/s, host "
+          f"clock, upload included); holdout AUC {big_auc:.4f}")
+    check(big_auc > 0.85, f"the 1 M fit's holdout AUC is {big_auc}")
+
+    win, labels, _truth, n_tr = _mhc_task(MHC_N)
+    a, b = (train.fit(win[:n_tr], labels[:n_tr], epochs=2,
+                      batch_size=MHC_BATCH, seed=0, device=DEV)
+            for _ in range(2))
+    for key in a:
+        check(np.array_equal(a[key], b[key]),
+              f"two 128x1 fits with one seed differ in {key}")
+    print(f"reproducible on {card}: two 128x1 fits (2 epochs, seed 0) "
+          f"bit-equal")
+
+    # one order of the rows for both devices: the card's generator and
+    # the CPU's give different permutations
+    n = 4 * MHC_BATCH
+    order = np.random.default_rng(1).permutation(n)
+    real = train._epoch_orders
+    train._epoch_orders = lambda seed, padded, epochs, device: iter(
+        [torch.from_numpy(order).to(device)] * epochs)
+    try:
+        for name in HEADS:
+            params = init_params(NEO_K, seed=1, **HEADS[name])
+            card_p, cpu_p = (
+                train.fit(win[:n], labels[:n], epochs=1, batch_size=MHC_BATCH,
+                          seed=1, params=params, device=dev)
+                for dev in (DEV, "cpu"))
+            d = max(float(np.abs(card_p[k] - cpu_p[k]).max())
+                    for k in card_p)
+            print(f"4 steps of {name} on {card} against the CPU (plain "
+                  f"K3/K4): params max |d| {d}")
+            check(d <= 5e-3, f"{name}: card and CPU params differ by {d}")
+    finally:
+        train._epoch_orders = real
 
 
 def main():
@@ -646,6 +994,9 @@ def main():
     os.environ["RUN_SELECTED_TEST"] = "1"
     card = phase_device()
     phase_build()
+    import numpy as np
+
+    from vcf2prot_tpu.downstream.scoring import init_params
     from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
     from vcf2prot_tpu_torch.runtime.kernels import validate_on_device
 
@@ -660,6 +1011,8 @@ def main():
         n_chunks, measured = phase_kernels(card, blob, flat)
         n_neo_chunks, k3 = phase_k3(card, blob, flat)
         measured["window_layer1"] = k3["128x1"]
+        k4 = phase_k4(card)
+        measured["window_layer1_backward"] = k4[("128x1", K4_ROWS[0])]
         del blob, flat
         # each path: its launch counters from zero, read just after
         segmented_copy.launches = 0
@@ -674,7 +1027,18 @@ def main():
         validate_on_device.launches = 0
         phase_debug(workdir, *small)
         launches["validate_on_device"] = validate_on_device.launches
-        phase_wide(workdir, *small)
+        npz = os.path.join(workdir, "head_512x3.npz")
+        np.savez(npz, **init_params(NEO_K, seed=5, **HEADS["512x3"]))
+        phase_wide(workdir, *small, npz, "random 512x3", HOST_ORACLE_TOL)
+        # the training path: K3 forward, K4 backward
+        trained, train_launches = phase_train(card)
+        check(all(train_launches.values()),
+              f"a kernel of the training path never ran: {train_launches}")
+        launches["window_layer1_backward"] = (
+            train_launches["window_layer1_backward"])
+        phase_step_times(card, k4)
+        phase_serve_trained(card, workdir, *small, trained["512x3"])
+        phase_train_checks(card)
     check(all(launches.values()), f"a kernel of the path never ran: "
           f"{launches}")
     check("jax" not in sys.modules, "jax was imported")
@@ -686,6 +1050,8 @@ def main():
                                "vcf2prot_tpu/runtime/kernels.py:38"),
         "window_layer1": ("vcf2prot_tpu_torch/csrc/scorer.cu",
                           "vcf2prot_tpu/downstream/scoring.py:147"),
+        "window_layer1_backward": ("vcf2prot_tpu_torch/csrc/scorer_grad.cu",
+                                   "vcf2prot_tpu/downstream/train.py:157"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

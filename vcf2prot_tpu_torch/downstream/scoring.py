@@ -15,6 +15,12 @@ k folded rows that a window's residues select, in i order
 operands: the product of two bf16 values is exact in fp32, so with TF32
 off this is the reference's bf16 x bf16 -> fp32 product (a bf16 product on
 the card would round its result to bf16 before the bias add).
+
+Training (``downstream/train.py``) runs the same forward through
+:class:`TrainableHead`: fp32 parameters, cast to bf16 inside the graph, and
+layer 1 as :class:`WindowLayer1`, K3 with K4 (``csrc/scorer_grad.cu``) as
+its gradient. The casts inside the graph round each cotangent of a bf16
+operand to bf16, where XLA's gradient of the reference rounds it.
 """
 from __future__ import annotations
 
@@ -41,14 +47,26 @@ _LUT = torch.from_numpy(_alphabet_lut()).long()
 # K3 stages one column of the k*21-row table in shared memory at the least
 # (k*21*2 bytes + the 256-byte lookup, at most 227 KB a block)
 MAX_K3_K = (227 * 1024 - 256) // (VOCAB * 2)
+# K4 sums one column of a [k*21 + 1]-row fp32 table in shared memory at the
+# least; rows are cut into tiles of K4_TILE_ROWS, at most K4_MAX_TILES of
+# them (each tile's partial table is [k*21 + 1, H] fp32 of scratch)
+MAX_K4_K = ((227 * 1024 - 256) // 4 - 1) // VOCAB
+K4_TILE_ROWS, K4_MAX_TILES = 64, 512
 
 
-def _check_layer1_args(buf, pos, k, table, b1) -> None:
+def _check_windows(buf, pos, k) -> None:
+    """The types of a window buffer, its positions and k (no wait)."""
     if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
         raise TypeError("buf must be a contiguous 1-D uint8 tensor")
     if (pos.dtype not in (torch.int32, torch.int64) or pos.dim() != 1
             or not pos.is_contiguous()):
         raise TypeError("pos must be a contiguous 1-D int32/int64 tensor")
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+
+
+def _check_layer1_args(buf, pos, k, table, b1) -> None:
+    _check_windows(buf, pos, k)
     if (table.dtype != torch.bfloat16 or table.dim() != 2
             or not table.is_contiguous() or table.shape[0] != k * VOCAB):
         raise TypeError(
@@ -60,8 +78,11 @@ def _check_layer1_args(buf, pos, k, table, b1) -> None:
         raise TypeError("b1 must be a contiguous fp32 [H] tensor")
     if len({t.device for t in (buf, pos, table, b1)}) != 1:
         raise ValueError("buf, pos, table and b1 must share a device")
-    if k < 1:
-        raise ValueError(f"k must be positive, got {k}")
+    _check_window_bounds(buf, pos, k)
+
+
+def _check_window_bounds(buf, pos, k) -> None:
+    """Every window inside ``buf``; waits for the device once."""
     if pos.numel():
         lo, hi = (int(v) for v in torch.aminmax(pos))
         if lo < 0 or hi + k > buf.numel():
@@ -71,13 +92,20 @@ def _check_layer1_args(buf, pos, k, table, b1) -> None:
             )
 
 
+def _window_rows(buf, pos, k: int) -> torch.Tensor:
+    """``[M, k]`` folded-table rows the windows select: ``i*21 +
+    lut[buf[pos[m] + i]]``."""
+    idx = pos.long()[:, None] + torch.arange(k, device=buf.device)
+    rows = _LUT.to(buf.device)[buf[idx].long()]
+    rows += torch.arange(k, device=buf.device) * VOCAB
+    return rows
+
+
 def window_layer1_reference(buf, pos, k: int, table, b1) -> torch.Tensor:
     """Plain torch version of K3: ``h1[m] = bf16(relu(sum_i float(table[i*21
     + lut[buf[pos[m] + i]]]) + b1))``, the k rows summed in fp32 in i
     order. Memory is ``[m, H]``, never ``[m, k, H]``."""
-    idx = pos.long()[:, None] + torch.arange(k, device=buf.device)
-    rows = _LUT.to(buf.device)[buf[idx].long()]
-    rows += torch.arange(k, device=buf.device) * VOCAB
+    rows = _window_rows(buf, pos, k)
     acc = table[rows[:, 0]].float()
     for i in range(1, k):
         acc = acc + table[rows[:, i]].float()
@@ -122,6 +150,106 @@ def window_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
 window_layer1.launches = 0
 
 
+def _check_layer1_grad_args(buf, pos, k, h1, g) -> None:
+    _check_windows(buf, pos, k)
+    for name, t in (("h1", h1), ("g", g)):
+        if (t.dtype != torch.bfloat16 or t.dim() != 2
+                or not t.is_contiguous() or t.shape[0] != pos.numel()):
+            raise TypeError(
+                f"{name} must be a contiguous bf16 [M, H] tensor with M = "
+                f"{pos.numel()} windows, got {t.dtype} {tuple(t.shape)}"
+            )
+    if g.shape != h1.shape:
+        raise TypeError(f"g {tuple(g.shape)} and h1 {tuple(h1.shape)} differ")
+    if len({t.device for t in (buf, pos, h1, g)}) != 1:
+        raise ValueError("buf, pos, h1 and g must share a device")
+
+
+def window_layer1_backward_reference(buf, pos, k: int, h1, g):
+    """Plain torch version of K4: with ``gm = where(h1 > 0, float(g), 0)``,
+    ``dtable[i*21 + lut[buf[pos[m] + i]]] += gm[m]`` (one ``index_add_``
+    per position i) and ``db1 = gm.sum(0)``, both fp32."""
+    rows = _window_rows(buf, pos, k)
+    gm = torch.where(h1 > 0, g.float(), 0.0)
+    dtable = torch.zeros((k * VOCAB, h1.shape[1]), dtype=torch.float32,
+                         device=buf.device)
+    for i in range(k):
+        dtable.index_add_(0, rows[:, i], gm)
+    return dtable, gm.sum(0)
+
+
+def window_layer1_backward(buf, pos, k: int, h1, g):
+    """Gradient of :func:`window_layer1`: ``(dtable fp32 [k*21, H], db1 fp32
+    [H])`` of the windows ``buf[pos[m] : pos[m] + k]``, their first-layer
+    output ``h1`` (bf16 ``[M, H]``, for ReLU's mask) and its incoming
+    gradient ``g`` (bf16 ``[M, H]``). CUDA tensors run K4 on the current
+    stream; CPU tensors run :func:`window_layer1_backward_reference`."""
+    _check_layer1_grad_args(buf, pos, k, h1, g)
+    _check_window_bounds(buf, pos, k)
+    return _layer1_backward(buf, pos, k, h1, g)
+
+
+def _layer1_backward(buf, pos, k: int, h1, g):
+    """:func:`window_layer1_backward` on checked arguments."""
+    if buf.device.type == "cpu":
+        return window_layer1_backward_reference(buf, pos, k, h1, g)
+    if buf.device.type != "cuda":
+        raise ValueError(f"unsupported device {buf.device}")
+    if k > MAX_K4_K:
+        raise ValueError(f"K4 takes k <= {MAX_K4_K}, got {k}")
+    m, h_dim = h1.shape
+    # dtable's rows, then db1: one buffer, two views
+    out = torch.empty((k * VOCAB + 1, h_dim), dtype=torch.float32,
+                      device=buf.device)
+    if m == 0 or h_dim == 0:
+        out.zero_()
+        return out[:-1], out[-1]
+    # the tiles are a function of M alone, so is the summation order
+    tiles = min(-(-m // K4_TILE_ROWS), K4_MAX_TILES)
+    partial = torch.empty(tiles * out.numel(), dtype=torch.float32,
+                          device=buf.device)
+    lib = load_kernels()
+    fn = lib.v2p_window_layer1_grad_i32 if pos.dtype == torch.int32 else (
+        lib.v2p_window_layer1_grad_i64
+    )
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(
+            fn(buf.data_ptr(), pos.data_ptr(), m, k, h1.data_ptr(),
+               g.data_ptr(), h_dim, tiles, partial.data_ptr(),
+               out.data_ptr(), stream),
+            "window scorer gradient",
+        )
+    window_layer1_backward.launches += 1
+    return out[:-1], out[-1]
+
+
+window_layer1_backward.launches = 0
+
+
+class WindowLayer1(torch.autograd.Function):
+    """:func:`window_layer1` (K3) with :func:`window_layer1_backward` (K4)
+    as its gradient. ``table`` (bf16) gets ``dtable`` rounded to bf16, as
+    XLA rounds the cotangent of the reference's bf16 table; ``b1`` gets
+    ``db1`` in fp32; ``buf`` and ``pos`` get none."""
+
+    @staticmethod
+    def forward(ctx, buf, pos, k, table, b1):
+        h1 = window_layer1(buf, pos, k, table, b1)
+        ctx.save_for_backward(buf, pos, h1)
+        ctx.k = k
+        return h1
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, pos, h1 = ctx.saved_tensors
+        g = g.contiguous()
+        # the forward checked these windows' bounds: no second sync
+        _check_layer1_grad_args(buf, pos, ctx.k, h1, g)
+        dtable, db1 = _layer1_backward(buf, pos, ctx.k, h1, g)
+        return None, None, None, dtable.to(torch.bfloat16), db1
+
+
 def tf32_matmul_on() -> bool:
     """True when fp32 products on the card may run in TF32 (any of the
     three switches torch has had for it)."""
@@ -133,6 +261,51 @@ def tf32_matmul_on() -> bool:
             or torch.get_float32_matmul_precision() != "highest"
             or getattr(mm, "fp32_precision", "none") == "tf32"
         )
+
+
+def head_shape(params: dict) -> tuple:
+    """``(layer names w1..wN, k)`` of a weight dictionary."""
+    names = layer_names(params)
+    if len(names) < 2:
+        raise ValueError("the head needs w1 and an output layer")
+    e_dim = np.shape(params["embed"])[1]
+    n_in = np.shape(params[names[0]])[0]
+    if n_in % e_dim:
+        raise ValueError(
+            f"w1 has {n_in} inputs, not a multiple of embed width {e_dim}"
+        )
+    return names, n_in // e_dim
+
+
+def fold_table(embed, w1) -> torch.Tensor:
+    """The folded first layer, bf16 ``[k*21, H]``: ``einsum("ve,keh->kvh")``
+    of the fp32 embedding ``[21, E]`` and ``w1`` ``[k*E, H]``, rounded to
+    bf16 (``scoring.py:144-146`` of the reference)."""
+    e_dim, h_dim = embed.shape[1], w1.shape[1]
+    k = w1.shape[0] // e_dim
+    return torch.einsum(
+        "ve,keh->kvh", embed, w1.reshape(k, e_dim, h_dim)
+    ).reshape(k * VOCAB, h_dim).to(torch.bfloat16).contiguous()
+
+
+def later_layers(h1, layers) -> torch.Tensor:
+    """fp32 scores ``[M]`` of first-layer activations ``h1`` (bf16) through
+    ``layers``, ``[(w, b), ...]`` with ``w`` fp32 holding bf16 values: each
+    a product of bf16-valued operands in fp32, plus ``b``, with ReLU
+    between layers. Serving (:meth:`ScoringHead.rest`) and training
+    (:class:`TrainableHead`) share it, so the two cannot skew."""
+    if h1.device.type == "cuda" and tf32_matmul_on():
+        raise RuntimeError(
+            "TF32 is enabled for fp32 products "
+            "(torch.backends.cuda.matmul.allow_tf32 or "
+            "torch.set_float32_matmul_precision); the scoring head "
+            "needs full fp32 products"
+        )
+    h = h1.float()
+    for j, (w, b) in enumerate(layers):
+        out = h.to(torch.bfloat16).float() @ w + b
+        h = out if j == len(layers) - 1 else torch.relu(out)
+    return h[:, 0]
 
 
 class ScoringHead(nn.Module):
@@ -160,21 +333,11 @@ class ScoringHead(nn.Module):
         """The port's head of a JAX-package weight dictionary (``embed``,
         ``w1``/``b1`` .. ``wN``/``bN``); the fold is computed here, once,
         in fp32 on the CPU."""
-        names = layer_names(params)
-        if len(names) < 2:
-            raise ValueError("the head needs w1 and an output layer")
-        embed = torch.as_tensor(np.asarray(params["embed"], np.float32))
-        w1 = torch.as_tensor(np.asarray(params[names[0]], np.float32))
-        e_dim, h_dim = embed.shape[1], w1.shape[1]
-        if w1.shape[0] % e_dim:
-            raise ValueError(
-                f"w1 has {w1.shape[0]} inputs, not a multiple of embed "
-                f"width {e_dim}"
-            )
-        k = w1.shape[0] // e_dim
-        table = torch.einsum(
-            "ve,keh->kvh", embed, w1.reshape(k, e_dim, h_dim)
-        ).reshape(k * VOCAB, h_dim).to(torch.bfloat16).contiguous()
+        names, k = head_shape(params)
+        table = fold_table(
+            torch.as_tensor(np.asarray(params["embed"], np.float32)),
+            torch.as_tensor(np.asarray(params[names[0]], np.float32)),
+        )
         b1 = torch.as_tensor(np.asarray(params["b1"], np.float32))
         # later weights are the products' bf16 operands, kept as fp32
         weights = [
@@ -199,19 +362,10 @@ class ScoringHead(nn.Module):
 
     def rest(self, h1) -> torch.Tensor:
         """fp32 scores ``[M]`` of first-layer activations (bf16)."""
-        if h1.device.type == "cuda" and tf32_matmul_on():
-            raise RuntimeError(
-                "TF32 is enabled for fp32 products "
-                "(torch.backends.cuda.matmul.allow_tf32 or "
-                "torch.set_float32_matmul_precision); the scoring head "
-                "needs full fp32 products"
-            )
-        h = h1.float()
-        for i in self.layers:
-            w, b = getattr(self, f"w{i}"), getattr(self, f"b{i}")
-            out = h.to(torch.bfloat16).float() @ w + b
-            h = out if i == self.layers[-1] else torch.relu(out)
-        return h[:, 0]
+        return later_layers(h1, [
+            (getattr(self, f"w{i}"), getattr(self, f"b{i}"))
+            for i in self.layers
+        ])
 
     def score_positions(self, buf, pos) -> torch.Tensor:
         """fp32 scores of the windows ``buf[pos : pos + k]``, in blocks of
@@ -221,6 +375,52 @@ class ScoringHead(nn.Module):
         for s in range(0, pos.numel(), blk):
             out[s:s + blk] = self.rest(self.layer1(buf, pos[s:s + blk]))
         return out
+
+
+class TrainableHead(nn.Module):
+    """The scoring head as fp32 parameters (``embed``, ``w1``/``b1`` ..
+    ``wN``/``bN``), for training (``downstream/train.py``).
+
+    The forward is :class:`ScoringHead`'s: the fold and every bf16 cast run
+    inside the graph, layer 1 is :class:`WindowLayer1` (K3, with K4 as its
+    gradient), the later layers :func:`later_layers`.
+    """
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self.names, self.k = head_shape(params)
+        for name in ["embed"] + [key for n in self.names
+                                 for key in (n, "b" + n[1:])]:
+            self.register_parameter(name, nn.Parameter(
+                torch.tensor(np.asarray(params[name], np.float32))
+            ))
+
+    @classmethod
+    def from_params(cls, params: dict) -> "TrainableHead":
+        """The trainable head of a JAX-package weight dictionary."""
+        return cls(params)
+
+    def to_params(self) -> dict:
+        """The weight dictionary (fp32 numpy copies, ``load_params``'
+        keys and shapes)."""
+        return {name: p.detach().cpu().numpy().copy()
+                for name, p in self.named_parameters()}
+
+    def forward(self, windows) -> torch.Tensor:
+        """fp32 scores ``[B]`` of u8 windows ``[B, k]`` on the head's
+        device."""
+        b, k = windows.shape
+        if k != self.k:
+            raise ValueError(f"windows are {k}-mers, the head scores {self.k}")
+        buf = windows.reshape(-1).contiguous()
+        pos = torch.arange(b, dtype=torch.int64, device=buf.device) * k
+        h1 = WindowLayer1.apply(buf, pos, k, fold_table(self.embed, self.w1),
+                                self.b1)
+        return later_layers(h1, [
+            (getattr(self, n).to(torch.bfloat16).float(),
+             getattr(self, "b" + n[1:]))
+            for n in self.names[1:]
+        ])
 
 
 def score_windows(windows, head: ScoringHead) -> torch.Tensor:

@@ -49,6 +49,10 @@ SIGNATURES = {
     "v2p_validate_i64": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
     "v2p_window_layer1_i32": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P),
     "v2p_window_layer1_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P),
+    "v2p_window_layer1_grad_i32": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,
+                                   _P, _P, _P),
+    "v2p_window_layer1_grad_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,
+                                   _P, _P, _P),
 }
 
 _LIB = None
