@@ -51,18 +51,44 @@ failing the run with a non-zero exit:
    ``ScoringHead`` on the card;
 11. a 512x3 fit of 1,000,000 9-mers for 2 epochs (windows/s), two 128x1
    fits bit-equal, and 4 steps on the card against the same 4 steps on
-   the CPU (plain K3/K4) within 5e-3.
+   the CPU (plain K3/K4) within 5e-3;
+12. sharded FASTA path: ``-g gpu -s`` on the main cohort with
+   ``parallel.mesh.make_mesh`` replaced by a mesh of the one card named
+   twice (``repeated_card_mesh``), byte-compared with ``-g mt``; K1
+   launched once per non-empty shard of every chunk;
+13. ``DEBUG_GPU=1 -a -c -w`` on that mesh and the 128 x 1,200 cohort: K2
+   launched once per non-empty shard of every chunk;
+14. sharded neoantigen chain: ``--neoantigen_only`` on that mesh and the
+   main cohort, rows equal to phase 6's single-device chain within rtol
+   1e-5 + atol 1e-6; K1 and K3 launched on every shard;
+15. data-parallel fit: the 128x1 and 512x3 heads of phase 9 over that mesh
+   with a global batch of 4,096: holdout AUC within [artifact - 0.01,
+   ceiling + 0.02], weights after 1 epoch within 5e-3 of the
+   single-device fit on the card, two dp fits bit-equal, fit walls and
+   step times beside the single-device ones;
+16. multi-host: two processes of this script (``--multihost-child``) join
+   one gloo group on localhost through ``initialize_distributed`` and run
+   ``run_multihost_pipeline -g gpu`` on the main cohort, both on the card;
+   the union of ``shard_0/`` and ``shard_1/`` is byte-equal to the FASTAs
+   of ``-g mt``, and each child's K1 count is above 0.
+
+A mesh of one card named twice runs the sharded code paths and their
+kernels; it says nothing of multi-GPU scaling, and real multi-GPU and
+multi-node runs stay unverified.
 
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Imports no JAX.
+The line before the last is the kernels' JSON summary (launches summed
+over the paths); the last line is ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -106,6 +132,14 @@ BIG_N, BIG_EPOCHS = 1_000_000, 2
 WINDOW_BYTES = b"ACDEFGHIKLMNPQRSTVWYX."
 # the card the K4 and training phases run on
 DEV = "cuda"
+# the sharded phases' mesh: the one card, named MESH_SHARDS times
+MESH_SHARDS = 2
+SCALING_NOTE = ("one card named twice: this checks the sharded code path "
+                "and its kernels, and says nothing of multi-GPU scaling")
+# the dp fit's heads (phase 15)
+DP_HEADS = ("128x1", "512x3")
+# seconds a multi-host child may take (phase 16)
+MULTIHOST_TIMEOUT = 300
 
 
 def fail(msg: str):
@@ -580,6 +614,7 @@ def phase_main(card, workdir, vcf, fa, n_chunks):
           f"byte-identical; "
           f"-g gpu {gpu_s:.3f} s wall, -g mt {mt_s:.3f} s wall; "
           f"K1 launches {k1} for {n_chunks} chunks")
+    return gpu_s
 
 
 def phase_debug(workdir, vcf, fa):
@@ -604,7 +639,8 @@ def phase_debug(workdir, vcf, fa):
 
 def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
     """The device-resident chain through the CLI, against the cohort batch
-    of -g gpu and -g mt (the same scorer); returns the path's launches."""
+    of -g gpu and -g mt (the same scorer); returns the path's launches and
+    wall, and leaves its reports in ``workdir/neo_chain``."""
     from vcf2prot_tpu_torch.downstream.compare import reports_disagree
     from vcf2prot_tpu_torch.downstream.device_resident import (
         candidate_positions,
@@ -648,9 +684,9 @@ def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
           f"count), -g gpu --neoantigen_device {batch_s:.3f} s, "
           f"-g mt --neoantigen_device {mt_s:.3f} s; launches {launches} "
           f"for {n_neo_chunks} chunks")
-    for d in (chain, batch, host):
+    for d in (batch, host):
         shutil.rmtree(d)
-    return launches
+    return launches, chain_s
 
 
 def _reports(d):
@@ -831,8 +867,9 @@ def phase_train(card):
     return trained, launches
 
 
-def _step_ms(params, reps=20):
-    """Median device time of one training step of MHC_BATCH rows: steps
+def _step_ms(params, devices=(DEV,), reps=20):
+    """Median device time of one training step of MHC_BATCH rows over
+    ``devices`` (one replica each, an equal slice of the batch each): steps
     back to back, a CUDA event at each step's end."""
     import torch
 
@@ -840,17 +877,22 @@ def _step_ms(params, reps=20):
     from vcf2prot_tpu_torch.downstream.scoring import TrainableHead
 
     win, labels, _truth, _n = _mhc_task(MHC_BATCH)
-    head = TrainableHead.from_params(params).to(DEV)
-    opt = torch.optim.Adam(head.parameters(), lr=1e-3)
-    w = torch.from_numpy(win).to(DEV)
-    y = torch.from_numpy(labels).to(DEV)
-    m = torch.ones_like(y)
+    replicas = [TrainableHead.from_params(params).to(d) for d in devices]
+    opt = torch.optim.Adam(replicas[0].parameters(), lr=1e-3)
+    rows = MHC_BATCH // len(devices)
+    shards = []
+    for i, d in enumerate(devices):
+        y = torch.from_numpy(labels[i * rows:(i + 1) * rows]).to(d)
+        count = (None if len(devices) == 1
+                 else torch.tensor(float(MHC_BATCH), device=d))
+        shards.append((torch.from_numpy(win[i * rows:(i + 1) * rows]).to(d),
+                       y, torch.ones_like(y), count))
     for _ in range(3):
-        train.train_step(head, opt, w, y, m, True)
+        train.train_step(replicas, opt, shards, True)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     events[0].record()
     for e in events[1:]:
-        train.train_step(head, opt, w, y, m, True)
+        train.train_step(replicas, opt, shards, True)
         e.record()
     events[-1].synchronize()
     return statistics.median(a.elapsed_time(b)
@@ -981,6 +1023,299 @@ def phase_train_checks(card):
         train._epoch_orders = real
 
 
+@contextlib.contextmanager
+def repeated_card_mesh():
+    """``parallel.mesh.make_mesh`` replaced by the one card named
+    MESH_SHARDS times, so that the pipeline takes its multi-device
+    branches on it (the CPU tests replace it the same way)."""
+    import torch
+
+    from vcf2prot_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = (torch.device("cuda", 0),) * MESH_SHARDS
+    real = mesh_mod.make_mesh
+    mesh_mod.make_mesh = lambda n_devices=0: mesh
+    try:
+        yield mesh
+    finally:
+        mesh_mod.make_mesh = real
+
+
+def shard_launches(flat, budget, pairs):
+    """``(chunks, shards)`` of a sharded run over MESH_SHARDS devices in
+    pair-aligned chunks of ``budget`` result bytes: K1 launches once per
+    shard that holds any residue. ``pairs``: shards of samples (the chain),
+    else of programs (the FASTA executor)."""
+    from vcf2prot_tpu.parallel.sharded import partition_programs
+    from vcf2prot_tpu.parallel.sharded_neoantigen import partition_pairs
+    from vcf2prot_tpu.pipeline import _chunk_indices
+
+    chunks = _chunk_indices(flat, budget, pair_aligned=True)
+    n = 0
+    for chunk in chunks:
+        progs = [flat[i] for i in chunk]
+        if pairs:
+            shards = [[q for i in s for q in (progs[2 * i], progs[2 * i + 1])]
+                      for s in partition_pairs(progs, MESH_SHARDS)]
+        else:
+            shards = [[progs[i] for i in s]
+                      for s in partition_programs(progs, MESH_SHARDS)]
+        n += sum(any(p.res_len for p in s) for s in shards)
+    return len(chunks), n
+
+
+def phase_sharded_fasta(card, workdir, vcf, fa, n_chunks, shards, single_s):
+    """12: -g gpu -s over the repeated-card mesh against -g mt."""
+    from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
+
+    out = os.path.join(workdir, "gpu_mesh")
+    segmented_copy.launches = 0
+    with repeated_card_mesh():
+        wall = _run_cli(vcf, fa, out, "gpu", "-s", "-v")
+    k1 = segmented_copy.launches
+    n = _same_outputs(out, os.path.join(workdir, "mt"), "sharded FASTA path")
+    check(k1 == shards >= MESH_SHARDS * n_chunks,
+          f"K1 launched {k1} times for {shards} non-empty shards in "
+          f"{n_chunks} chunks")
+    print(f"sharded FASTA path on {card} ({SCALING_NOTE}): {n} files "
+          f"byte-identical to -g mt; -g gpu over {MESH_SHARDS} shards "
+          f"{wall:.3f} s wall against {single_s:.3f} s on one device; K1 "
+          f"launches {k1} for {n_chunks} chunks of <= "
+          f"{CHUNK_BYTES * MESH_SHARDS} bytes")
+    shutil.rmtree(out)
+    return {"segmented_copy": k1}
+
+
+def phase_sharded_debug(workdir, vcf, fa):
+    """13: DEBUG_GPU=1 -a -c -w over the repeated-card mesh against -g mt
+    (phase 5's output): K2 on every non-empty shard of every chunk."""
+    from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
+    from vcf2prot_tpu_torch.runtime.kernels import validate_on_device
+
+    _blob, flat = compile_main(vcf, fa)
+    n_chunks, shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
+                                      pairs=False)
+    out = os.path.join(workdir, "dbg_gpu_mesh")
+    validate_on_device.launches = segmented_copy.launches = 0
+    os.environ["DEBUG_GPU"] = "1"
+    try:
+        with repeated_card_mesh():
+            wall = _run_cli(vcf, fa, out, "gpu", "-a", "-c", "-w")
+    finally:
+        del os.environ["DEBUG_GPU"]
+    launches = {"validate_on_device": validate_on_device.launches,
+                "segmented_copy": segmented_copy.launches}
+    n = _same_outputs(out, os.path.join(workdir, "dbg_mt"),
+                      "sharded DEBUG_GPU -a -c -w")
+    check(launches["validate_on_device"] == launches["segmented_copy"]
+          == shards >= n_chunks,
+          f"launches {launches} for {shards} non-empty shards in "
+          f"{n_chunks} chunk(s)")
+    print(f"sharded debug path ({SCALING_NOTE}): {n} gzip files identical "
+          f"after decompression; -g gpu {wall:.3f} s; launches {launches} "
+          f"for {shards} non-empty shards in {n_chunks} chunk(s)")
+    shutil.rmtree(out)
+    return launches
+
+
+def phase_sharded_neo(card, workdir, vcf, fa, n_chunks, shards, single_s):
+    """14: --neoantigen_only over the repeated-card mesh against phase 6's
+    single-device chain."""
+    from vcf2prot_tpu_torch.downstream.compare import reports_disagree
+    from vcf2prot_tpu_torch.downstream.device_resident import (
+        candidate_positions,
+    )
+    from vcf2prot_tpu_torch.downstream.scoring import window_layer1
+    from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
+
+    out = os.path.join(workdir, "neo_mesh")
+    chain = os.path.join(workdir, "neo_chain")
+    segmented_copy.launches = window_layer1.launches = 0
+    candidate_positions.wait_s = 0.0
+    with repeated_card_mesh():
+        wall = _run_cli(vcf, fa, out, "gpu", "--neoantigen_only", "-v",
+                        "--neoantigen_k", str(NEO_K), "--neoantigen_top",
+                        str(NEO_TOP))
+    launches = {"segmented_copy": segmented_copy.launches,
+                "window_layer1": window_layer1.launches}
+    check(launches["segmented_copy"] == shards > n_chunks,
+          f"K1 launched {launches['segmented_copy']} times for {shards} "
+          f"non-empty shards in {n_chunks} chunks")
+    check(launches["window_layer1"] >= shards,
+          f"K3 launched {launches['window_layer1']} times for {shards} "
+          f"shards")
+    msg = reports_disagree(out, chain, atol=1e-6, rtol=1e-5)
+    check(msg is None, f"sharded chain against the single-device chain: "
+                       f"{msg}")
+    print(f"sharded neoantigen chain on {card} ({SCALING_NOTE}): "
+          f"{len(os.listdir(out))} TSVs equal to the single-device chain "
+          f"(rtol 1e-5 + atol 1e-6); --neoantigen_only over {MESH_SHARDS} "
+          f"shards {wall:.3f} s wall ({candidate_positions.wait_s:.3f} s of "
+          f"it waiting on candidate counts) against {single_s:.3f} s on one "
+          f"device; launches {launches} for {shards} shards in {n_chunks} "
+          f"chunks")
+    shutil.rmtree(out)
+    return launches
+
+
+def phase_dp_train(card):
+    """15: the data-parallel fit over the repeated-card mesh; returns the
+    path's K3 and K4 launches."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu.downstream.synth_mhc import oracle_auc
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        ScoringHead,
+        score_windows,
+        window_layer1,
+        window_layer1_backward,
+    )
+
+    mesh = (torch.device("cuda", 0),) * MESH_SHARDS
+    win, labels, truth, n_tr = _mhc_task(MHC_N)
+    ceiling = oracle_auc(truth[n_tr:], labels[n_tr:])
+    artifact = _artifact_aucs()
+    steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
+    window_layer1.launches = window_layer1_backward.launches = 0
+    for name in DP_HEADS:
+        t0 = time.perf_counter()
+        params = train.fit(
+            win[:n_tr], labels[:n_tr], epochs=MHC_EPOCHS,
+            batch_size=MHC_BATCH, seed=0,
+            params=init_params(NEO_K, seed=0, **TRAIN_HEADS[name]),
+            mesh=mesh)
+        wall = time.perf_counter() - t0
+        head = ScoringHead.from_params(params).to(DEV)
+        auc = train.auc(score_windows(win[n_tr:], head).cpu().numpy(),
+                        labels[n_tr:])
+        print(f"dp train {name} on {card} ({SCALING_NOTE}): holdout AUC "
+              f"{auc:.4f} (artifact {artifact[name]:.4f}, ceiling "
+              f"{ceiling:.4f}); fit wall {wall:.3f} s for {steps} steps of "
+              f"{MHC_BATCH} over {MESH_SHARDS} replicas "
+              f"({wall / steps * 1e3:.3f} ms a step, host clock)")
+        check(artifact[name] - 0.01 <= auc <= ceiling + 0.02,
+              f"dp {name} holdout AUC {auc:.4f} outside "
+              f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
+    launches = {"window_layer1": window_layer1.launches,
+                "window_layer1_backward": window_layer1_backward.launches}
+    check(all(launches.values()), f"a kernel of the dp fit never ran: "
+                                  f"{launches}")
+    for name in DP_HEADS:
+        kw = dict(batch_size=MHC_BATCH, seed=0,
+                  params=init_params(NEO_K, seed=0, **TRAIN_HEADS[name]))
+        dp = train.fit(win[:n_tr], labels[:n_tr], epochs=1, mesh=mesh, **kw)
+        one = train.fit(win[:n_tr], labels[:n_tr], epochs=1, device=DEV,
+                        **kw)
+        d = max(float(np.abs(dp[k] - one[k]).max()) for k in dp)
+        check(d <= 5e-3, f"dp {name}: 1 epoch differs from one device by {d}")
+        a, b = (train.fit(win[:n_tr], labels[:n_tr], epochs=2, mesh=mesh,
+                          **kw) for _ in range(2))
+        for key in a:
+            check(np.array_equal(a[key], b[key]),
+                  f"two dp {name} fits with one seed differ in {key}")
+        step = _step_ms(kw["params"])
+        dp_step = _step_ms(kw["params"], mesh)
+        print(f"dp {name} on {card}: weights after 1 epoch within {d} of "
+              f"the single-device fit; two dp fits (2 epochs) bit-equal; "
+              f"median step of {MHC_BATCH} rows {dp_step:.4f} ms over "
+              f"{MESH_SHARDS} replicas against {step:.4f} ms on one "
+              f"(CUDA events)")
+    return launches
+
+
+def _fastas(d):
+    return {f: _read(os.path.join(d, f)) for f in os.listdir(d)
+            if f.endswith(".fasta")}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost(card, workdir, vcf, fa):
+    """16: two processes in one gloo group, each on its sample block of the
+    main cohort on the card; their union against -g mt's FASTAs (phase
+    4's output). Returns the children's K1 launches."""
+    out = os.path.join(workdir, "multihost")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-child",
+         str(rank), str(port), vcf, fa, out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for rank in (0, 1)]
+    try:
+        children = []
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=MULTIHOST_TIMEOUT)
+            check(proc.returncode == 0, f"multi-host child {rank} exited "
+                                        f"{proc.returncode}: {stderr[-2000:]}")
+            children.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    shards = [os.path.join(out, f"shard_{r}") for r in (0, 1)]
+    check(sorted(os.listdir(out)) == ["shard_0", "shard_1"],
+          f"multi-host output holds {sorted(os.listdir(out))}")
+    union = {}
+    for d in shards:
+        check(all(f.endswith(".fasta") for f in os.listdir(d)),
+              f"{d} holds more than FASTAs")
+        got = _fastas(d)
+        check(not set(got) & set(union), "a sample written by two hosts")
+        union.update(got)
+    check(union == _fastas(os.path.join(workdir, "mt")),
+          "the union of the hosts' FASTAs differs from -g mt")
+    for child in children:
+        check(child["segmented_copy"] > 0,
+              f"K1 never ran in multi-host child {child['rank']}")
+    print(f"multi-host on {card} (2 processes, gloo on localhost, both on "
+          f"the one card): {len(union)} FASTAs, union byte-identical to "
+          f"-g mt; children {children}; {wall:.3f} s wall for both")
+    shutil.rmtree(out)
+    return {"segmented_copy": sum(c["segmented_copy"] for c in children)}
+
+
+def multihost_child(rank, port, vcf, fa, out):
+    """One host of phase 16: joins the group, runs its block on the card,
+    prints its K1 launches as the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is False)")
+    os.environ["RUN_SELECTED_TEST"] = "1"
+    import torch.distributed as dist
+
+    from vcf2prot_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        run_multihost_pipeline,
+    )
+    from vcf2prot_tpu_torch.pipeline import PipelineConfig
+    from vcf2prot_tpu_torch.runtime.engine import Engine
+    from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
+
+    initialize_distributed(f"localhost:{port}", num_processes=2,
+                           process_id=int(rank))
+    segmented_copy.launches = 0
+    t0 = time.perf_counter()
+    res = run_multihost_pipeline(PipelineConfig(
+        vcf_path=vcf, fasta_path=fa, outdir=out, engine=Engine.GPU))
+    print(json.dumps({
+        "rank": dist.get_rank(), "samples": res.n_samples,
+        "segmented_copy": segmented_copy.launches,
+        "wall_s": round(time.perf_counter() - t0, 3),
+    }))
+    dist.destroy_process_group()
+
+
 def main():
     import torch
 
@@ -1013,36 +1348,42 @@ def main():
         measured["window_layer1"] = k3["128x1"]
         k4 = phase_k4(card)
         measured["window_layer1_backward"] = k4[("128x1", K4_ROWS[0])]
+        fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
+                                      pairs=False)
+        neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
         del blob, flat
         # each path: its launch counters from zero, read just after
         segmented_copy.launches = 0
-        phase_main(card, workdir, *big, n_chunks)
-        launches = {"segmented_copy": segmented_copy.launches}
+        single_s = phase_main(card, workdir, *big, n_chunks)
+        paths = {"main": {"segmented_copy": segmented_copy.launches}}
+        paths["sharded FASTA"] = phase_sharded_fasta(
+            card, workdir, *big, *fasta_shards, single_s)
+        paths["multi-host"] = phase_multihost(card, workdir, *big)
         shutil.rmtree(os.path.join(workdir, "gpu"))
         shutil.rmtree(os.path.join(workdir, "mt"))
-        launches["window_layer1"] = phase_neo(
-            card, workdir, *big, n_neo_chunks)["window_layer1"]
+        paths["neoantigen chain"], chain_s = phase_neo(
+            card, workdir, *big, n_neo_chunks)
+        paths["sharded chain"] = phase_sharded_neo(
+            card, workdir, *big, *neo_shards, chain_s)
+        shutil.rmtree(os.path.join(workdir, "neo_chain"))
         small = write_cohort(workdir, "random_cohort", DEBUG_SAMPLES,
                              DEBUG_TRANSCRIPTS, DEBUG_SEED)
-        validate_on_device.launches = 0
+        validate_on_device.launches = segmented_copy.launches = 0
         phase_debug(workdir, *small)
-        launches["validate_on_device"] = validate_on_device.launches
+        paths["debug"] = {"validate_on_device": validate_on_device.launches,
+                          "segmented_copy": segmented_copy.launches}
+        paths["sharded debug"] = phase_sharded_debug(workdir, *small)
         npz = os.path.join(workdir, "head_512x3.npz")
         np.savez(npz, **init_params(NEO_K, seed=5, **HEADS["512x3"]))
         phase_wide(workdir, *small, npz, "random 512x3", HOST_ORACLE_TOL)
         # the training path: K3 forward, K4 backward
-        trained, train_launches = phase_train(card)
-        check(all(train_launches.values()),
-              f"a kernel of the training path never ran: {train_launches}")
-        launches["window_layer1_backward"] = (
-            train_launches["window_layer1_backward"])
+        trained, paths["training"] = phase_train(card)
+        check(all(paths["training"].values()),
+              f"a kernel of the training path never ran: {paths['training']}")
         phase_step_times(card, k4)
         phase_serve_trained(card, workdir, *small, trained["512x3"])
         phase_train_checks(card)
-    check(all(launches.values()), f"a kernel of the path never ran: "
-          f"{launches}")
-    check("jax" not in sys.modules, "jax was imported")
-    print("jax imported: False")
+        paths["dp training"] = phase_dp_train(card)
     meta = {
         "segmented_copy": ("vcf2prot_tpu_torch/csrc/executor.cu",
                            "vcf2prot_tpu/runtime/tpu_engine.py:119"),
@@ -1053,6 +1394,15 @@ def main():
         "window_layer1_backward": ("vcf2prot_tpu_torch/csrc/scorer_grad.cu",
                                    "vcf2prot_tpu/downstream/train.py:157"),
     }
+    launches = dict.fromkeys(meta, 0)
+    for counts in paths.values():
+        for name, n in counts.items():
+            launches[name] += n
+    print(f"launches by path: {json.dumps(paths)}")
+    check(all(launches.values()), f"a kernel of the paths never ran: "
+          f"{launches}")
+    check("jax" not in sys.modules, "jax was imported")
+    print("jax imported: False")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **measured[name]}
@@ -1065,4 +1415,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multihost-child"]:
+        multihost_child(*sys.argv[2:])
+    else:
+        main()

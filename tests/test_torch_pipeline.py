@@ -227,7 +227,12 @@ def test_import_leaves_jax_out():
         "vcf2prot_tpu_torch.runtime.kernels, vcf2prot_tpu_torch.runtime.build\n"
         "import vcf2prot_tpu_torch.downstream.device_resident, "
         "vcf2prot_tpu_torch.downstream.cohort, "
-        "vcf2prot_tpu_torch.downstream.compare\n"
+        "vcf2prot_tpu_torch.downstream.compare, "
+        "vcf2prot_tpu_torch.downstream.train\n"
+        "import vcf2prot_tpu_torch.parallel.mesh, "
+        "vcf2prot_tpu_torch.parallel.sharded, "
+        "vcf2prot_tpu_torch.parallel.sharded_neoantigen, "
+        "vcf2prot_tpu_torch.parallel.multihost\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

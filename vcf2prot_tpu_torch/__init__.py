@@ -6,9 +6,11 @@ tier (VCF frontend, compiler, packing, writers, stats, neoantigen candidate
 collection and the scoring head's numpy weights) is imported from
 ``vcf2prot_tpu``, whose host modules import no JAX; this package owns only
 what touches the device: the engine selection, the GPU executor and
-validator, the neoantigen scoring head, cohort batch and device-resident
-chain (``downstream/``; hand-written CUDA kernels under ``csrc/``), the
-pipeline's device branches and the CLI.
+validator, the neoantigen scoring head, cohort batch, device-resident
+chain and trainer (``downstream/``; hand-written CUDA kernels under
+``csrc/``), the multi-device and multi-host layer (``parallel/``: a mesh of
+``torch.device``s, the sharded executor and chain, per-host sample
+blocks), the pipeline's device branches and the CLI.
 
     from vcf2prot_tpu_torch import PipelineConfig, run_pipeline, Engine
     result = run_pipeline(PipelineConfig(

@@ -148,13 +148,24 @@ class ChunkHandle(NamedTuple):
     packed: object = None         # u8[S, top, 8+k] on the device
 
 
+class PlannedChunk(NamedTuple):
+    """A chunk packed and checked on the host, not yet on the device."""
+
+    packed: object       # the chunk's PackedCohort (int32, contiguous)
+    ann: tuple           # (annotation starts, ends) of the chunk's tape
+    sample_starts: object
+    hap1_lens: list
+
+
 class DeviceNeoantigenEngine:
     """Chunked execute + score + rank on one device.
 
     ``run_chunk(programs)`` gives per-sample rows ``[(score, hap,
     hap_pos, peptide), ...]`` by descending score, top ``top`` per sample:
     the rows of the cohort batch path. ``dispatch``/``collect`` split it
-    so that a caller dispatches chunk N+1 before it fetches chunk N.
+    so that a caller dispatches chunk N+1 before it fetches chunk N;
+    ``dispatch`` itself is :meth:`plan`, :meth:`launch` and :meth:`finish`,
+    which the sharded chain calls shard by shard.
     ``device="cpu"`` runs every kernel's plain version.
     """
 
@@ -177,6 +188,15 @@ class DeviceNeoantigenEngine:
     def dispatch(self, programs) -> ChunkHandle:
         """Pack, upload and run one chunk; waits for the device once, for
         its candidate count, and leaves the rows on the device."""
+        plan = self.plan(programs)
+        if isinstance(plan, ChunkHandle):
+            return plan
+        return self.finish(plan, self.launch(plan))
+
+    def plan(self, programs):
+        """Pack and check one chunk on the host: a :class:`PlannedChunk`,
+        or the ``"host"`` / ``"empty"`` :class:`ChunkHandle` of a chunk
+        the card does not run."""
         packed = pack_cohort(programs, self.blob)
         n_samples = len(programs) // 2
         host = ChunkHandle("host", n_samples)
@@ -196,18 +216,29 @@ class DeviceNeoantigenEngine:
         )
         hap1_lens = [spans[2 * i][2] - spans[2 * i][1]
                      for i in range(n_samples)]
-        tape, dst, srcb = self.executor.launch(packed)
-        ann_starts, ann_ends = (to_device(a, self.device) for a in ann)
+        return PlannedChunk(packed, ann, sample_starts, hap1_lens)
+
+    def launch(self, plan: PlannedChunk):
+        """Upload a planned chunk and launch K1 and the candidate mask,
+        without waiting for the device; returns ``(tape, cand)``."""
+        tape, dst, srcb = self.executor.launch(plan.packed)
+        ann_starts, ann_ends = (to_device(a, self.device) for a in plan.ann)
         cand = candidate_mask(tape, dst, srcb, len(self.blob.data),
                               ann_starts, ann_ends, self.k)
+        return tape, cand
+
+    def finish(self, plan: PlannedChunk, launched) -> ChunkHandle:
+        """Compact (the one wait, for the candidate count), score and rank
+        a launched chunk; its rows stay on the device."""
+        tape, cand = launched
         pos = candidate_positions(cand)
         scores = self.head.score_positions(tape, pos)
         rows = pack_rows(*rank_rows(
-            tape, pos, scores, to_device(sample_starts, self.device),
+            tape, pos, scores, to_device(plan.sample_starts, self.device),
             self.k, self.top,
         ))
-        return ChunkHandle("device", n_samples, sample_starts, hap1_lens,
-                           rows)
+        return ChunkHandle("device", len(plan.sample_starts),
+                           plan.sample_starts, plan.hap1_lens, rows)
 
     def collect(self, handle: ChunkHandle):
         """Fetch and decode a dispatched chunk's rows (``run_chunk``'s
@@ -244,12 +275,20 @@ def _host_chunk_rows(progs, blob, k, head, top):
 def write_device_neoantigen_reports(
         outdir, proband_names, programs, blob, k: int, params=None,
         top: int = 200, chunk_res_bytes: int = DEFAULT_NEO_CHUNK_RES_BYTES,
-        device="cuda"):
+        device="cuda", mesh=None):
     """Device-resident neoantigen TSVs of a cohort: the schema and ranking
     of ``cohort.write_reports_from_candidates``. Chunks that cannot run on
-    the card take the host chain (:func:`_host_chunk_rows`)."""
-    eng = DeviceNeoantigenEngine(blob, k, params=params, top=top,
-                                 device=device)
+    the card take the host chain (:func:`_host_chunk_rows`). ``mesh`` (a
+    tuple of ``torch.device``) runs the sharded chain
+    (``parallel/sharded_neoantigen.py``) in place of ``device``; chunks
+    keep ``chunk_res_bytes``, as in the reference."""
+    if mesh is not None:
+        from ..parallel.sharded_neoantigen import ShardedNeoantigenEngine
+
+        eng = ShardedNeoantigenEngine(blob, mesh, k, params=params, top=top)
+    else:
+        eng = DeviceNeoantigenEngine(blob, k, params=params, top=top,
+                                     device=device)
     paths = []
 
     def write_rows(chunk, progs, rows):

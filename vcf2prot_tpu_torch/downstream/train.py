@@ -23,6 +23,17 @@ loop on the device: the data is uploaded once, each step's loss is kept in
 a device tensor and fetched once at the end. The one wait per step is K3's
 wrapper checking its windows' bounds.
 
+``fit(..., mesh=...)`` is the reference's data-parallel fit
+(``train.py:89-96``, ``:133-216``) over a mesh, a tuple of
+``torch.device``s that may repeat one: one replica of the head per shard,
+and shard ``i`` takes rows ``[i*rows, (i+1)*rows)`` of every global batch of
+one permutation, drawn on the mesh's first device. Each replica's loss
+divides by the global batch's mask count and adds ``l2 / n_shards``; after
+every replica's backward, the fp32 parameter gradients (each already
+rounded to bf16 where XLA rounds a shard's cotangent, hazard 11) are
+summed in shard order on the first device, adam steps there, and the
+weights are copied back to the other replicas.
+
     python -m vcf2prot_tpu_torch.downstream.train data.tsv out.npz \\
         [--epochs 30] [--lr 1e-3] [--batch 4096] [--seed 0] [--l2 0] \\
         [--holdout 0.2] [--embed_dim 32] [--hidden 128] [--depth 1] \\
@@ -46,6 +57,7 @@ from vcf2prot_tpu.downstream.train import (  # noqa: F401 (re-exported)
     save_params,
 )
 
+from ..parallel.sharded import as_mesh, per_device
 from .scoring import ScoringHead, TrainableHead, init_params, score_windows
 
 
@@ -58,44 +70,74 @@ def _epoch_orders(seed: int, padded: int, epochs: int, device):
         yield torch.randperm(padded, generator=gen, device=device)
 
 
-def batch_loss(scores, y, m, binary: bool) -> torch.Tensor:
+def batch_loss(scores, y, m, binary: bool, count=None) -> torch.Tensor:
     """The masked mean loss of one batch: optax's
     ``sigmoid_binary_cross_entropy`` when ``binary``, else the squared
     error, summed over the rows with ``m`` = 1 and divided by their count
-    (at least 1)."""
+    (at least 1). A shard of a data-parallel batch passes the whole
+    batch's ``count``."""
     if binary:
         per = -y * F.logsigmoid(scores) - (1.0 - y) * F.logsigmoid(-scores)
     else:
         per = (scores - y) ** 2
-    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per * m).sum() / torch.clamp(
+        m.sum() if count is None else count, min=1.0)
 
 
-def train_step(head: TrainableHead, opt, w, y, m, binary: bool,
+def train_step(replicas, opt, shards, binary: bool,
                l2: float = 0.0) -> torch.Tensor:
-    """One adam step on the batch ``w`` (u8 ``[B, k]``), ``y``, ``m``;
-    returns the batch's loss as a device tensor (no wait)."""
-    opt.zero_grad(set_to_none=True)
-    loss = batch_loss(head(w), y, m, binary)
-    if l2:
-        loss = loss + l2 * sum((p * p).sum() for name, p in
-                               head.named_parameters() if name[0] == "w")
-    loss.backward()
+    """One adam step of the replicas of a head (:class:`TrainableHead`s,
+    one per shard; a single-device fit has one): ``replicas[i]`` takes
+    ``shards[i] = (w, y, m, count)``, the u8 windows ``[B, k]``, labels
+    and mask of its rows and ``count``, the whole batch's mask count (None:
+    ``m.sum()``). ``opt`` steps the first replica, whose weights are then
+    copied to the others. Returns the sum of the shards' losses on the
+    first replica's device (no wait)."""
+    n = len(replicas)
+    loss = None
+    for head, (w, y, m, count) in zip(replicas, shards):
+        head.zero_grad(set_to_none=True)
+        part = batch_loss(head(w), y, m, binary, count)
+        if l2:
+            # added once in all: each shard carries 1/n of it
+            part = part + l2 * sum((p * p).sum() for name, p in
+                                   head.named_parameters()
+                                   if name[0] == "w") / n
+        part.backward()
+        part = part.detach()
+        loss = part if loss is None else loss + part.to(loss.device)
+    main = list(replicas[0].parameters())
+    for head in replicas[1:]:
+        for p, q in zip(main, head.parameters()):
+            p.grad += q.grad.to(p.device)
     opt.step()
-    return loss.detach()
+    with torch.no_grad():
+        for head in replicas[1:]:
+            for p, q in zip(main, head.parameters()):
+                q.copy_(p)
+    return loss
 
 
 def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
         epochs: int = 30, batch_size: int = 4096, learning_rate: float = 1e-3,
         seed: int = 0, params: dict = None, l2: float = 0.0,
-        verbose: bool = False, device="cuda") -> dict:
+        verbose: bool = False, device="cuda", mesh=None) -> dict:
     """Fit the scoring head on ``windows u8[N, k]`` / ``labels f32[N]`` on
     ``device`` (CUDA by default; ``"cpu"`` runs every kernel's plain
     version). Binary labels train with sigmoid cross-entropy, any other
     labels with the squared error, both on the raw score the ranking paths
     sort by. Returns the trained weights, a dict of fp32 numpy arrays ready
-    for ``save_params`` / ``load_params``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    for ``save_params`` / ``load_params``.
+
+    ``mesh``, a tuple of ``torch.device``s (``parallel.mesh.make_mesh``,
+    or one device repeated), trains data-parallel over it in place of
+    ``device``: the batch size rounds up to a multiple of the mesh size and
+    each device takes its slice of every global batch (module docstring);
+    the trajectory is the single-device one up to float reassociation."""
+    devices = (as_mesh(mesh) if mesh is not None
+               else (torch.device(device),))
+    if (any(d.type == "cuda" for d in devices)
+            and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device: pass device='cpu' to train on "
                            "the CPU")
     windows = np.asarray(windows, np.uint8)
@@ -119,7 +161,12 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
         raise ValueError(f"the head scores {head.k}-mers, not {k}-mers")
     binary = bool(np.isin(labels, (0.0, 1.0)).all())
 
+    n_shards = len(devices)
     batch_size = min(_bucket(batch_size), _bucket(max(n, 1)))
+    batch_size = max(batch_size, n_shards)  # every shard sees >= 1 row
+    if batch_size % n_shards:
+        # a mesh of 6: an equal slice of every batch for every shard
+        batch_size += n_shards - batch_size % n_shards
     n_batches = (n + batch_size - 1) // batch_size
     padded = n_batches * batch_size
     win_p = np.zeros((padded, k), np.uint8)
@@ -129,20 +176,34 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
     mask_p = np.zeros(padded, np.float32)
     mask_p[:n] = 1.0
 
-    head = head.to(device)
-    opt = torch.optim.Adam(head.parameters(), lr=learning_rate)
-    wd, yd, md = (torch.from_numpy(a).to(device)
-                  for a in (win_p, lab_p, mask_p))
+    replicas = [head.to(devices[0])] + [
+        TrainableHead.from_params(params).to(d) for d in devices[1:]
+    ]
+    opt = torch.optim.Adam(replicas[0].parameters(), lr=learning_rate)
+    # the data once per distinct device
+    data = dict(zip(devices, per_device(devices, lambda d: [
+        torch.from_numpy(a).to(d) for a in (win_p, lab_p, mask_p)
+    ])))
+    rows = batch_size // n_shards
     losses = torch.empty((epochs, n_batches), dtype=torch.float32,
-                         device=device)
-    for e, order in enumerate(_epoch_orders(seed, padded, epochs, device)):
-        wb = wd[order].view(n_batches, batch_size, k)
-        yb = yd[order].view(n_batches, batch_size)
-        mb = md[order].view(n_batches, batch_size)
+                         device=devices[0])
+    for e, order in enumerate(
+            _epoch_orders(seed, padded, epochs, devices[0])):
+        order = order.view(n_batches, n_shards, rows)
+        # each global batch's mask count: whole numbers, exact in fp32
+        counts = data[devices[0]][2][order].sum((1, 2))
+        shards = []
+        for i, d in enumerate(devices):
+            wd, yd, md = data[d]
+            idx = order[:, i].to(d)
+            shards.append((wd[idx], yd[idx], md[idx], counts.to(d)))
         for b in range(n_batches):
-            losses[e, b] = train_step(head, opt, wb[b], yb[b], mb[b], binary,
-                                      l2)
-    out = head.to_params()
+            losses[e, b] = train_step(
+                replicas, opt,
+                [(w[b], y[b], m[b], c[b]) for w, y, m, c in shards],
+                binary, l2,
+            )
+    out = replicas[0].to_params()
     if verbose:
         for e, row in enumerate(losses.cpu().numpy()):
             print(f"epoch {e + 1}/{epochs}: loss {row.mean():.5f}")

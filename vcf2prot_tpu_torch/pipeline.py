@@ -15,7 +15,14 @@ and then either
 * with ``--neoantigen_only``, runs the device-resident chain
   (``downstream/device_resident.py``), which fetches only per-sample rows.
 
-Not ported yet: the multi-device branch of the JAX pipeline.
+With the device left at the default ``"cuda"`` and more than one local CUDA
+device (``parallel.mesh.make_mesh``), both run sharded over every device,
+as the reference does on a host with several TPU chips: FASTA chunks of
+``chunk_res_bytes`` per device through
+:class:`~vcf2prot_tpu_torch.parallel.sharded.ShardedEngine`, and the chain
+through :class:`~vcf2prot_tpu_torch.parallel.sharded_neoantigen.
+ShardedNeoantigenEngine` with chunks of the single-device size. An explicit
+``"cuda:N"`` or ``"cpu"`` keeps one device.
 """
 from __future__ import annotations
 
@@ -93,14 +100,40 @@ def execute_programs(programs, blob, engine: Engine,
     return outputs
 
 
+def device_mesh(device):
+    """The mesh a GPU-engine run on ``device`` spreads over, or None for
+    one device: ``make_mesh()`` when ``device`` is the default ``"cuda"``
+    and it finds more than one device (the reference's
+    ``jax.local_device_count() > 1``)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is not None:
+        return None
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    return mesh if len(mesh) > 1 else None
+
+
 def _device_chunk_results(programs, blob, chunk_res_bytes, validate_device,
                           device, pair_aligned=False):
-    """Depth-2 chunk pipeline over :class:`GpuEngine`: the next chunk is
-    dispatched before the previous one is collected; yields
-    ``(chunk_indices, outputs)`` in order."""
-    from .runtime.gpu_engine import GpuEngine
+    """Depth-2 chunk pipeline over :class:`GpuEngine`, or over
+    :class:`ShardedEngine` with chunks of ``chunk_res_bytes`` per device
+    when :func:`device_mesh` gives a mesh: the next chunk is dispatched
+    before the previous one is collected; yields ``(chunk_indices,
+    outputs)`` in order."""
+    mesh = device_mesh(device)
+    if mesh is not None:
+        from .parallel.sharded import ShardedEngine
 
-    dev = GpuEngine(blob, device=device, validate_on_device=validate_device)
+        dev = ShardedEngine(blob, mesh, validate_on_device=validate_device)
+        chunk_res_bytes *= len(mesh)
+    else:
+        from .runtime.gpu_engine import GpuEngine
+
+        dev = GpuEngine(blob, device=device,
+                        validate_on_device=validate_device)
     pending = deque()
     for chunk in _chunk_indices(programs, chunk_res_bytes, pair_aligned):
         pending.append((chunk, dev.dispatch([programs[i] for i in chunk])))
@@ -257,7 +290,7 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
                         if cfg.chunk_res_bytes is not None
                         else DEFAULT_NEO_CHUNK_RES_BYTES
                     ),
-                    device=cfg.device,
+                    device=cfg.device, mesh=device_mesh(cfg.device),
                 )
         for p in flat:
             result.n_haplotype_seqs += len(p.annotations)
