@@ -13,14 +13,18 @@ failing the run with a non-zero exit:
    started together;
 3. kernel vs plain twin on the card: K1 byte-equal on int32 / int64 /
    empty / edge-case packs, K2 count-equal on valid and corrupted packs,
-   and both timed on one full 256 MiB chunk (CUDA events); K3 against its
-   plain version on the candidate windows of a 128 MiB chunk for a 128x1
-   and a 512x3 head (at most 1 bf16 ulp apart; the same fp32 sums in the
-   same order, so bit-equal is expected), timed at the chain's block size,
-   and the chain's stages timed on that chunk;
+   and both timed on one full 256 MiB chunk (CUDA events) beside their
+   bounds; K3 bit-equal to its plain version (the same fp32 sums in the
+   same order) over H 8/100/128/512 x k 8/9/11/30 x M 1/127/4,096/524,287
+   x int32/int64 positions at odd byte offsets, and on the candidate
+   windows of a 128 MiB chunk for a 128x1 and a 512x3 head, there timed
+   at the chain's block size (its launch alone, its wrapper with the
+   bounds check, ``F.embedding_bag`` over the same rows as the
+   yardstick, the plain version) beside its bound; the chain's stages
+   timed on that chunk;
 4. main path: the port's CLI ``-g gpu -s -v`` on a 1,536-sample x
-   2,000-transcript cohort (>= 2 chunks), byte-compared with the host
-   engine ``-g mt -s`` (``vcf2prot_tpu.pipeline.run_pipeline`` itself);
+   2,000-transcript cohort (>= 2 chunks), byte-compared with the port's
+   own host engine ``-g mt -s``;
 5. ``DEBUG_GPU=1 -a -c -w`` on a 128 x 1,200 cohort, record-compared with
    ``-g mt``, with the validator launched;
 6. neoantigen path: ``-g gpu --neoantigen_only --neoantigen_k 9
@@ -38,7 +42,8 @@ failing the run with a non-zero exit:
    (dynamic shared memory), int32 and int64 positions, windows at odd byte
    offsets of a tape, 4,096 rows (a training batch) and 524,288 (the
    chain's block); fp32 within rtol 1e-4 + atol 1e-5 * max|ref|, two
-   launches bit-equal, both timed;
+   launches bit-equal, both timed beside the bound and the yardstick
+   (``torch.autograd.grad`` of ``F.embedding_bag`` w.r.t. an fp32 table);
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -78,8 +83,11 @@ multi-node runs stay unverified.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON summary (launches summed
-over the paths); the last line is ``{"ok": true, "device": {...}}``.
-Imports no JAX.
+over the paths; each kernel's bound from the H100 SXM's published 3.35
+TB/s and 67 TFLOP/s of fp32, and its yardstick's time as ``library_ms``
+and ``one_call_ms``, null where no one call computes the same); the last
+line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
+package ``vcf2prot_tpu``.
 """
 from __future__ import annotations
 
@@ -132,6 +140,14 @@ BIG_N, BIG_EPOCHS = 1_000_000, 2
 WINDOW_BYTES = b"ACDEFGHIKLMNPQRSTVWYX."
 # the card the K4 and training phases run on
 DEV = "cuda"
+# the H100 SXM's published device-memory rate and fp32 rate outside the
+# tensor cores (bytes/s, operations/s), for each kernel's bound
+HBM_RATE, FP32_RATE = 3.35e12, 67e12
+# calls a kernel timing spans back to back (phases 3 and 8)
+BACK_TO_BACK = 10
+# K3's shape coverage (phase 3): widths, window lengths and row counts
+K3_WIDTHS, K3_KS, K3_ROWS = (8, 100, 128, 512), (8, 9, 11, 30), (
+    1, 127, 4096, 524287)
 # the sharded phases' mesh: the one card, named MESH_SHARDS times
 MESH_SHARDS = 2
 SCALING_NOTE = ("one card named twice: this checks the sharded code path "
@@ -221,9 +237,11 @@ def write_cohort(workdir, gen, n_samples, n_transcripts, seed):
     return vcf, fa
 
 
-def _cuda_ms(fn, reps=10):
+def _cuda_ms(fn, reps=10, inner=1):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after one warm-up,
-    and the last call's result."""
+    and the last call's result. With ``inner`` > 1 each timing spans that
+    many calls back to back and is divided by it: a kernel shorter than
+    its wrapper's host work is then timed by the card, not by the host."""
     import torch
 
     out = fn()
@@ -233,19 +251,42 @@ def _cuda_ms(fn, reps=10):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn()
+        for _ in range(inner):
+            out = fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times), out
+
+
+
+def _bound(n_bytes, n_ops=0):
+    """``(bound_ms, bound_by)``: the least time the card could take, the
+    larger of the compulsory bytes over HBM_RATE and the fp32 operations
+    over FP32_RATE."""
+    by_bytes = n_bytes / HBM_RATE * 1e3
+    by_ops = n_ops / FP32_RATE * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def _covered_bytes(pos, k):
+    """Bytes of a buffer that k-byte windows at ``pos`` cover (each read
+    once, however many windows hold it)."""
+    import torch
+
+    if pos.numel() == 0:
+        return 0
+    ps = torch.sort(pos.long()).values
+    return int((ps[1:] - ps[:-1]).clamp(max=k).sum()) + k
 
 
 def _edge_packs():
     """Executor edge cases of tests/test_executor_edges.py, packed."""
     import numpy as np
 
-    from vcf2prot_tpu.compiler.haplotype import HaplotypeProgram, RefBlob
-    from vcf2prot_tpu.runtime.pack import pack_cohort
+    from vcf2prot_tpu_torch.compiler.haplotype import HaplotypeProgram, RefBlob
+    from vcf2prot_tpu_torch.runtime.pack import pack_cohort
 
     blob = RefBlob.from_ref_seqs({"T": "ABCDEFGHIJKLMNOP"})
 
@@ -312,10 +353,13 @@ def _k2_pair(dst, length, srcb, combined_len, res_len):
 
 def compile_main(big_vcf, big_fa):
     """The main cohort's proteome blob and haplotype programs (native)."""
-    from vcf2prot_tpu.compiler.haplotype import RefBlob
-    from vcf2prot_tpu.compiler.qc import default_qc
-    from vcf2prot_tpu.frontend.fasta import read_fasta
-    from vcf2prot_tpu.native_bridge import compile_cohort_native, load_native
+    from vcf2prot_tpu_torch.compiler.haplotype import RefBlob
+    from vcf2prot_tpu_torch.compiler.qc import default_qc
+    from vcf2prot_tpu_torch.frontend.fasta import read_fasta
+    from vcf2prot_tpu_torch.native_bridge import (
+        compile_cohort_native,
+        load_native,
+    )
 
     check(load_native() is not None, "the native host tier did not load")
     ref_seqs = read_fasta(big_fa)
@@ -331,8 +375,8 @@ def phase_kernels(card, blob, flat):
     import numpy as np
     import torch
 
-    from vcf2prot_tpu.pipeline import _chunk_indices
-    from vcf2prot_tpu.runtime.pack import pack_cohort
+    from vcf2prot_tpu_torch.pipeline import _chunk_indices
+    from vcf2prot_tpu_torch.runtime.pack import pack_cohort
     from vcf2prot_tpu_torch.runtime.gpu_engine import (
         segmented_copy,
         segmented_copy_reference,
@@ -403,9 +447,11 @@ def phase_kernels(card, blob, flat):
     total = packed.total_res
     err = _k1_err(combined, dst, srcb, total)
     check(err == 0, f"K1 differs from its twin on the full chunk ({err})")
-    k1_ms, _ = _cuda_ms(lambda: segmented_copy(combined, dst, srcb, total))
+    k1_ms, _ = _cuda_ms(lambda: segmented_copy(combined, dst, srcb, total),
+                        inner=BACK_TO_BACK)
     k1_plain, _ = _cuda_ms(
-        lambda: segmented_copy_reference(combined, dst, srcb, total)
+        lambda: segmented_copy_reference(combined, dst, srcb, total),
+        inner=BACK_TO_BACK,
     )
     length = to_device(
         np.diff(np.append(packed.dst, total)).astype(packed.dst.dtype),
@@ -414,69 +460,111 @@ def phase_kernels(card, blob, flat):
     got, want = _k2_pair(dst, length, srcb, combined.numel(), total)
     check(got == want == 0, f"K2 {got} / twin {want} on the full chunk")
     k2_ms, _ = _cuda_ms(lambda: validate_on_device(
-        dst, length, srcb, combined.numel(), total))
+        dst, length, srcb, combined.numel(), total), inner=BACK_TO_BACK)
     k2_plain, _ = _cuda_ms(lambda: validate_reference(
-        dst, length, srcb, combined.numel(), total))
+        dst, length, srcb, combined.numel(), total), inner=BACK_TO_BACK)
     n = dst.numel()
-    moved = 2 * total + 4 * 2 * n  # tape read + write, dst + srcb
+    # tape read + written, dst + srcb read once each
+    moved = 2 * total + 2 * n * dst.element_size()
+    k1_bound, k1_by = _bound(moved)
+    # dst, length and srcb read once, the count written
+    read = 3 * n * dst.element_size() + 8
+    k2_bound, k2_by = _bound(read)
     print(f"K1 full chunk on {card}: {total} bytes, {n} tasks ({dst.dtype}): "
           f"{k1_ms:.4f} ms ({moved / k1_ms / 1e6:.1f} GB/s of {moved} "
-          f"bytes moved), twin {k1_plain:.4f} ms")
+          f"bytes moved; {100 * k1_bound / k1_ms:.1f}% of the "
+          f"{k1_bound:.4f} ms bound), twin {k1_plain:.4f} ms")
     print(f"K2 full chunk on {card}: {n} tasks: {k2_ms:.4f} ms "
-          f"({12 * n / k2_ms / 1e6:.1f} GB/s of {12 * n} bytes read), "
+          f"({read / k2_ms / 1e6:.1f} GB/s of {read} bytes read; "
+          f"{100 * k2_bound / k2_ms:.1f}% of the {k2_bound:.4f} ms bound), "
           f"twin {k2_plain:.4f} ms")
     print(f"chunks: {n_chunks} of <= {CHUNK_BYTES} bytes in the main cohort")
     del combined, dst, srcb, length
     torch.cuda.empty_cache()
     return n_chunks, {
         "segmented_copy": dict(max_abs_err=k1_err, ms=k1_ms,
-                               plain_ms=k1_plain),
+                               plain_ms=k1_plain, bound_ms=k1_bound,
+                               bound_by=k1_by, library_ms=None),
         "validate_on_device": dict(max_abs_err=k2_err, ms=k2_ms,
-                               plain_ms=k2_plain),
+                                   plain_ms=k2_plain, bound_ms=k2_bound,
+                                   bound_by=k2_by, library_ms=None),
     }
 
 
-def _ulps(a, b):
-    """Largest distance in bf16 units in the last place between two bf16
-    tensors of values >= 0 (ReLU outputs), where the bit patterns order
-    like the values."""
+def _bits_equal(a, b):
+    """Two bf16 tensors hold the same bit patterns (NaNs included)."""
     import torch
 
-    bits = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
-    return int(bits.max()) if bits.numel() else 0
+    return a.shape == b.shape and torch.equal(a.view(torch.int16),
+                                              b.view(torch.int16))
+
+
+def k3_shapes(card):
+    """K3 bit-equal to its plain version over K3_WIDTHS x K3_KS x K3_ROWS,
+    int32 and int64 positions, windows at odd byte offsets of a tape of
+    residues, 'X' and '.' (phase 3)."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+
+    rng = np.random.default_rng(13)
+    alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
+    tape_len = 1 << 23
+    tape = torch.from_numpy(
+        alphabet[rng.integers(0, len(alphabet), tape_len)]).to(DEV)
+    n = 0
+    for h in K3_WIDTHS:
+        for k in K3_KS:
+            head = sc.ScoringHead.from_params(
+                sc.init_params(k, seed=h + k, hidden=h)).to(DEV)
+            for m in K3_ROWS:
+                odd = rng.integers(0, (tape_len - k) // 2, m) * 2 + 1
+                for dt in (torch.int32, torch.int64):
+                    pos = torch.from_numpy(odd).to(dt).to(DEV)
+                    got = sc.window_layer1(tape, pos, k, head.table, head.b1)
+                    want = sc.window_layer1_reference(tape, pos, k,
+                                                      head.table, head.b1)
+                    torch.cuda.synchronize()
+                    check(_bits_equal(got, want),
+                          f"K3 H={h} k={k} M={m} {dt} differs from its "
+                          f"plain version (max |d| "
+                          f"{float((got.float() - want.float()).abs().max())})")
+                    n += 1
+            del head, got, want
+    torch.cuda.empty_cache()
+    print(f"K3 vs plain on {card}: bit-equal at {n} shapes (H {K3_WIDTHS} x "
+          f"k {K3_KS} x M {K3_ROWS} x int32/int64 positions at odd byte "
+          f"offsets)")
 
 
 def phase_k3(card, blob, flat):
     """K3 against its plain version on the candidate windows of the main
-    cohort's first 128 MiB chunk, and the chain's stages timed on that
-    chunk; returns K3's numbers and the cohort's 128 MiB chunk count."""
+    cohort's first 128 MiB chunk and over K3_WIDTHS x K3_KS x K3_ROWS, its
+    launch, wrapper and ``F.embedding_bag`` yardstick timed at the chain's
+    block size, and the chain's stages timed on that chunk; returns K3's
+    numbers and the cohort's 128 MiB chunk count."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
-    from vcf2prot_tpu.downstream.device_resident import (
-        _chunk_annotation_spans,
-    )
-    from vcf2prot_tpu.downstream.scoring import init_params
-    from vcf2prot_tpu.pipeline import _chunk_indices
-    from vcf2prot_tpu.runtime.pack import pack_cohort
     from vcf2prot_tpu_torch.downstream import device_resident as dr
-    from vcf2prot_tpu_torch.downstream.scoring import (
-        ScoringHead,
-        window_layer1,
-        window_layer1_reference,
-    )
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+    from vcf2prot_tpu_torch.pipeline import _chunk_indices
     from vcf2prot_tpu_torch.runtime.gpu_engine import (
         GpuEngine,
         segmented_copy,
         to_device,
     )
+    from vcf2prot_tpu_torch.runtime.pack import pack_cohort
 
+    k3_shapes(card)
     chunks = _chunk_indices(flat, NEO_CHUNK_BYTES, pair_aligned=True)
     progs = [flat[i] for i in chunks[0]]
     t0 = time.perf_counter()
     packed = pack_cohort(progs, blob)
     pack_s = time.perf_counter() - t0
-    ann = _chunk_annotation_spans(progs, packed.spans)
+    ann = dr._chunk_annotation_spans(progs, packed.spans)
     check(packed.contiguous and ann is not None,
           "the first 128 MiB chunk cannot run on the card")
     executor = GpuEngine(blob, "cuda")
@@ -490,34 +578,66 @@ def phase_k3(card, blob, flat):
           f"bytes: {total} bytes, {m} candidate {NEO_K}-windows")
     measured = {}
     for name, shape in HEADS.items():
-        head = ScoringHead.from_params(
-            init_params(NEO_K, seed=3, **shape)
+        head = sc.ScoringHead.from_params(
+            sc.init_params(NEO_K, seed=3, **shape)
         ).cuda()
         blk = head.block_rows(m)
         p = pos[:blk]
-        got = window_layer1(tape, p, NEO_K, head.table, head.b1)
-        want = window_layer1_reference(tape, p, NEO_K, head.table, head.b1)
+        h_dim = head.table.shape[1]
+        got = sc.window_layer1(tape, p, NEO_K, head.table, head.b1)
+        want = sc.window_layer1_reference(tape, p, NEO_K, head.table,
+                                          head.b1)
         torch.cuda.synchronize()
-        ulps = _ulps(got, want)
         err = float((got.float() - want.float()).abs().max())
         check(torch.isfinite(got.float()).all(), f"K3 {name}: not finite")
-        check(ulps <= 1, f"K3 {name} differs from its plain version by "
-                         f"{ulps} bf16 ulps (max |d| {err})")
+        check(_bits_equal(got, want), f"K3 {name} differs from its plain "
+                                      f"version on the cohort's windows "
+                                      f"(max |d| {err})")
         del got, want
-        ms, _ = _cuda_ms(lambda: window_layer1(tape, p, NEO_K, head.table,
-                                            head.b1))
-        plain, _ = _cuda_ms(lambda: window_layer1_reference(
-            tape, p, NEO_K, head.table, head.b1))
-        out_bytes = p.numel() * head.table.shape[1] * 2
+        args = (tape, p, NEO_K, head.table, head.b1)
+        ms, _ = _cuda_ms(lambda: sc._launch_layer1(*args),
+                         inner=BACK_TO_BACK)
+        # one launch between two events, as earlier runs timed K3
+        single, _ = _cuda_ms(lambda: sc._launch_layer1(*args))
+        wrapper, _ = _cuda_ms(lambda: sc.window_layer1(*args),
+                              inner=BACK_TO_BACK)
+        plain, _ = _cuda_ms(lambda: sc.window_layer1_reference(*args),
+                            inner=BACK_TO_BACK)
+        # the yardstick: one call summing the same bf16 rows, without the
+        # bias and ReLU; its [M, k] row ids are made outside the timing
+        rows = sc._window_rows(tape, p, NEO_K)
+        library, bag = _cuda_ms(
+            lambda: F.embedding_bag(rows, head.table, mode="sum"),
+            inner=BACK_TO_BACK)
+        check(bag.shape == (p.numel(), h_dim)
+              and bool(torch.isfinite(bag.float()).all()),
+              f"F.embedding_bag {name}: shape {tuple(bag.shape)} or values")
+        del rows, bag
+        # the stores alone: a fill of an output of the same size
+        fill = torch.empty((p.numel(), h_dim), dtype=torch.bfloat16,
+                           device=p.device)
+        fill_ms, _ = _cuda_ms(lambda: fill.fill_(1.0), inner=BACK_TO_BACK)
+        del fill
+        out_bytes = p.numel() * h_dim * 2
+        n_bytes = (out_bytes + p.numel() * p.element_size()
+                   + _covered_bytes(p, NEO_K) + head.table.numel() * 2
+                   + h_dim * 4)
+        bound, by = _bound(n_bytes, p.numel() * NEO_K * h_dim)
         print(f"K3 {name} on {card}: {p.numel()} windows (block of {blk}): "
-              f"{ulps} bf16 ulps, max |d| {err}; {ms:.4f} ms "
+              f"bit-equal to its plain version; launch {ms:.4f} ms back to "
+              f"back, {single:.4f} ms alone "
               f"({out_bytes / ms / 1e6:.1f} GB/s of {out_bytes} output "
-              f"bytes), plain {plain:.4f} ms")
-        measured[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+              f"bytes; {100 * bound / ms:.1f}% of the {bound:.4f} ms bound "
+              f"by {by}, {n_bytes} compulsory bytes), wrapper with its "
+              f"bounds check {wrapper:.4f} ms, F.embedding_bag "
+              f"{library:.4f} ms, plain {plain:.4f} ms; a fill_ of the "
+              f"output {fill_ms:.4f} ms")
+        measured[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=library,
+                              wrapper_ms=wrapper)
     torch.cuda.empty_cache()
-
     # where the time goes in one chunk, default head, stage by stage
-    head = ScoringHead.from_params(init_params(NEO_K)).cuda()
+    head = sc.ScoringHead.from_params(sc.init_params(NEO_K)).cuda()
     blk = head.block_rows(m)
     combined = executor._combined(packed)
     stages = {"host pack (host clock)": pack_s * 1e3}
@@ -530,8 +650,21 @@ def phase_k3(card, blob, flat):
         tape, dst, srcb, len(blob.data), ann_s, ann_e, NEO_K))
     stages["compaction (nonzero)"], _ = _cuda_ms(
         lambda: torch.nonzero(cand).squeeze(1))
-    stages["K3 layer 1"], h1 = _cuda_ms(lambda: [
+    def k3_blocks():
+        # as score_positions runs it: one bounds check, then the blocks
+        sc._check_layer1_args(tape, pos, NEO_K, head.table, head.b1)
+        return [sc._launch_layer1(tape, pos[s:s + blk], NEO_K, head.table,
+                                  head.b1) for s in range(0, m, blk)]
+
+    stages["K3 layer 1"], h1 = _cuda_ms(k3_blocks)
+    # the launches alone (not a stage of its own: the line above holds
+    # them), and the old form, a bounds check in every block's wrapper
+    k3_alone, _ = _cuda_ms(lambda: [
+        sc._launch_layer1(tape, pos[s:s + blk], NEO_K, head.table, head.b1)
+        for s in range(0, m, blk)])
+    k3_checked, _ = _cuda_ms(lambda: [
         head.layer1(tape, pos[s:s + blk]) for s in range(0, m, blk)])
+    check_ms, _ = _cuda_ms(lambda: sc._check_window_bounds(tape, pos, NEO_K))
     stages["fp32 products, layers 2..N"], parts = _cuda_ms(
         lambda: [head.rest(h) for h in h1])
     del h1
@@ -551,7 +684,25 @@ def phase_k3(card, blob, flat):
           f"median of 10, default 128x1 head, {m} candidates, "
           f"{len(progs) // 2} samples, rows {tuple(fetched.shape)}): "
           + "; ".join(f"{k} {v:.4f}" for k, v in stages.items())
-          + f"; device stages total {device:.4f}")
+          + f"; device stages total {device:.4f}; K3's "
+          f"{-(-m // blk)} launches alone {k3_alone:.4f}, with a bounds "
+          f"check in each {k3_checked:.4f}; the chunk's one bounds check "
+          f"{check_ms:.4f}")
+    # each torch stage's bound: its inputs read once, its outputs written
+    # once (the products: h1 read, the scores written)
+    h_dim = head.table.shape[1]
+    idx = dst.element_size()
+    bounds = {
+        "candidate mask": _bound(2 * total + 2 * dst.numel() * idx
+                                 + 2 * ann_s.numel() * ann_s.element_size()),
+        "compaction (nonzero)": _bound(total + m * 8),
+        "fp32 products, layers 2..N": _bound(m * h_dim * 2 + m * 4,
+                                             2 * m * h_dim),
+        "rank: 2 stable sorts + select + pack": _bound(
+            m * 12 + fetched.numel()),
+    }
+    print("chain stage bounds (ms): " + "; ".join(
+        f"{k} {b:.4f} by {by}" for k, (b, by) in bounds.items()))
     t_run = []
     eng = dr.DeviceNeoantigenEngine(blob, NEO_K, top=NEO_TOP)
     for _ in range(3):
@@ -733,14 +884,34 @@ def phase_wide(workdir, vcf, fa, npz, what, atol=None):
     shutil.rmtree(host)
 
 
+def _k4_yardstick(tape, pos, k, head, h1, g):
+    """K4's yardstick: ``torch.autograd.grad`` of ``F.embedding_bag(rows,
+    table, mode="sum")`` w.r.t. an fp32 table, given the ReLU-masked
+    gradient, on a graph built once (``retain_graph``); the row ids, the
+    graph and the mask are made outside the timing. Returns its median ms
+    and its dtable."""
+    import torch
+    import torch.nn.functional as F
+
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+
+    rows = sc._window_rows(tape, pos, k)
+    table = head.table.float().requires_grad_()
+    bag = F.embedding_bag(rows, table, mode="sum")
+    gm = torch.where(h1 > 0, g.float(), 0.0)
+    ms, (dtable,) = _cuda_ms(lambda: torch.autograd.grad(
+        bag, table, gm, retain_graph=True), inner=BACK_TO_BACK)
+    return ms, dtable
+
+
 def phase_k4(card):
     """K4 against its plain version on the card; returns its numbers by
     (head, rows) at k = 9 with int64 positions."""
     import numpy as np
     import torch
 
-    from vcf2prot_tpu.downstream.scoring import init_params
     from vcf2prot_tpu_torch.downstream import scoring as sc
+    from vcf2prot_tpu_torch.downstream.scoring import VOCAB, init_params
 
     rng = np.random.default_rng(11)
     alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
@@ -782,13 +953,25 @@ def phase_k4(card):
         if k == 9 and dt == torch.int64:
             # the launches alone, as autograd makes them (the forward
             # checked the windows' bounds)
-            ms, _ = _cuda_ms(lambda: sc._layer1_backward(tape, pos, k, h1, g))
+            ms, _ = _cuda_ms(lambda: sc._layer1_backward(tape, pos, k, h1, g),
+                             inner=BACK_TO_BACK)
             plain, _ = _cuda_ms(lambda: sc.window_layer1_backward_reference(
-                tape, pos, k, h1, g))
-            measured[(name, m)] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+                tape, pos, k, h1, g), inner=BACK_TO_BACK)
+            library, lib_d = _k4_yardstick(tape, pos, k, head, h1, g)
+            lib_err = float((lib_d - want[0]).abs().max())
+            h_dim = h1.shape[1]
+            n_bytes = (2 * h1.numel() * 2 + m * pos.element_size()
+                       + _covered_bytes(pos, k) + (k * VOCAB + 1) * h_dim * 4)
+            bound, by = _bound(n_bytes, m * k * h_dim)
+            measured[(name, m)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                       bound_ms=bound, bound_by=by,
+                                       library_ms=library)
             print(f"{what} on {card}: max |d| {err}; {ms:.4f} ms "
-                  f"({4 * h1.numel() / ms / 1e6:.1f} GB/s of h1 and g), "
-                  f"plain {plain:.4f} ms")
+                  f"({4 * h1.numel() / ms / 1e6:.1f} GB/s of h1 and g; "
+                  f"{100 * bound / ms:.1f}% of the {bound:.4f} ms bound by "
+                  f"{by}), plain {plain:.4f} ms, yardstick autograd.grad of "
+                  f"F.embedding_bag {library:.4f} ms (its dtable within "
+                  f"{lib_err} of the plain version's)")
         del h1, g, got, again, want
     torch.cuda.empty_cache()
     print(f"K4 vs plain: {len(cases)} cases within rtol 1e-4 + atol 1e-5 * "
@@ -810,7 +993,7 @@ def _artifact_aucs():
 
 def _mhc_task(n):
     """The synthetic MHC task and its 80/20 split."""
-    from vcf2prot_tpu.downstream.synth_mhc import make_task
+    from vcf2prot_tpu_torch.downstream.synth_mhc import make_task
 
     win, labels, truth = make_task(n=n, seed=MHC_SEED)
     n_tr = n - n // 5
@@ -821,8 +1004,8 @@ def phase_train(card):
     """The port's fit on the synthetic MHC task for the four heads (the
     training path); returns the trained weights by head and the path's
     K3 and K4 launches."""
-    from vcf2prot_tpu.downstream.scoring import init_params
-    from vcf2prot_tpu.downstream.synth_mhc import oracle_auc
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.scoring import (
         ScoringHead,
@@ -902,7 +1085,7 @@ def _step_ms(params, devices=(DEV,), reps=20):
 def phase_step_times(card, k4):
     """Step times of each head, the share of K4 in a step, and the cost of
     K3's per-call bounds check (its one wait per step)."""
-    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
     from vcf2prot_tpu_torch.downstream import scoring as sc
 
     step = {name: _step_ms(init_params(NEO_K, seed=0, **shape))
@@ -969,7 +1152,7 @@ def phase_train_checks(card):
     import numpy as np
     import torch
 
-    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.scoring import (
         ScoringHead,
@@ -1046,9 +1229,9 @@ def shard_launches(flat, budget, pairs):
     pair-aligned chunks of ``budget`` result bytes: K1 launches once per
     shard that holds any residue. ``pairs``: shards of samples (the chain),
     else of programs (the FASTA executor)."""
-    from vcf2prot_tpu.parallel.sharded import partition_programs
-    from vcf2prot_tpu.parallel.sharded_neoantigen import partition_pairs
-    from vcf2prot_tpu.pipeline import _chunk_indices
+    from vcf2prot_tpu_torch.parallel.sharded import partition_programs
+    from vcf2prot_tpu_torch.parallel.sharded_neoantigen import partition_pairs
+    from vcf2prot_tpu_torch.pipeline import _chunk_indices
 
     chunks = _chunk_indices(flat, budget, pair_aligned=True)
     n = 0
@@ -1164,8 +1347,8 @@ def phase_dp_train(card):
     import numpy as np
     import torch
 
-    from vcf2prot_tpu.downstream.scoring import init_params
-    from vcf2prot_tpu.downstream.synth_mhc import oracle_auc
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.scoring import (
         ScoringHead,
@@ -1331,7 +1514,7 @@ def main():
     phase_build()
     import numpy as np
 
-    from vcf2prot_tpu.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
     from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
     from vcf2prot_tpu_torch.runtime.kernels import validate_on_device
 
@@ -1403,9 +1586,16 @@ def main():
           f"{launches}")
     check("jax" not in sys.modules, "jax was imported")
     print("jax imported: False")
+    check("vcf2prot_tpu" not in sys.modules,
+          "the JAX package vcf2prot_tpu was imported")
+    print("vcf2prot_tpu imported: False")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **measured[name]}
+         "launches": launches[name],
+         **{key: measured[name][key] for key in keys},
+         "one_call_ms": measured[name]["library_ms"]}
         for name, (src, rep) in meta.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -154,7 +154,8 @@ def test_python_compile_path(cohort, tmp_path):
         ), f
 
 
-def test_host_engines_delegate_to_the_jax_package(cohort, tmp_path):
+def test_host_engines_match_the_jax_package(cohort, tmp_path):
+    """The port's own host engines write the JAX package's files."""
     vcf, fasta = cohort
     run_port(vcf, fasta, tmp_path / "mt", engine=Engine.MT)
     run_port(vcf, fasta, tmp_path / "st", engine=Engine.ST)
@@ -171,10 +172,10 @@ def test_auto_without_cuda_runs_the_host_engine(cohort, tmp_path, monkeypatch):
 
 
 def test_execute_programs_library_api(cohort):
-    from vcf2prot_tpu.compiler.haplotype import RefBlob
-    from vcf2prot_tpu.compiler.qc import QcConfig
-    from vcf2prot_tpu.frontend.fasta import read_fasta
-    from vcf2prot_tpu.native_bridge import compile_cohort_native
+    from vcf2prot_tpu_torch.compiler.haplotype import RefBlob
+    from vcf2prot_tpu_torch.compiler.qc import QcConfig
+    from vcf2prot_tpu_torch.frontend.fasta import read_fasta
+    from vcf2prot_tpu_torch.native_bridge import compile_cohort_native
 
     vcf, fasta = cohort
     ref_seqs = read_fasta(fasta)

@@ -145,6 +145,35 @@ def test_window_layer1_checks_its_arguments():
         window_layer1(buf, ok, 8, head.table, head.b1)
 
 
+def test_score_positions_checks_every_window_once(monkeypatch):
+    """score_positions checks all its windows' bounds in one call (one
+    wait on the card), then scores each block without a check; the scores
+    are the per-block wrapper's, and a window out of bounds anywhere
+    raises before any block is scored."""
+    from vcf2prot_tpu_torch.downstream import scoring
+
+    k = 9
+    head = ScoringHead.from_params(jax_scoring.init_params(k))
+    rng = np.random.default_rng(4)
+    buf = torch.from_numpy(BYTES[rng.integers(0, len(BYTES), 3000)])
+    pos = torch.from_numpy(rng.integers(0, 3000 - k + 1, 2500))
+    monkeypatch.setattr(ScoringHead, "block_rows", lambda self, m: 1000)
+    checks = []
+    real = scoring._check_window_bounds
+    monkeypatch.setattr(scoring, "_check_window_bounds",
+                        lambda *a: checks.append(a[1].numel()) or real(*a))
+    got = head.score_positions(buf, pos)
+    assert checks == [2500]
+    want = torch.cat([head.rest(window_layer1_reference(
+        buf, pos[s:s + 1000], k, head.table, head.b1))
+        for s in range(0, 2500, 1000)])
+    assert torch.equal(got, want)
+    bad = pos.clone()
+    bad[-1] = 3000 - k + 1
+    with pytest.raises(ValueError, match="leave"):
+        head.score_positions(buf, bad)
+
+
 # ---- the head against JAX's score_windows
 
 

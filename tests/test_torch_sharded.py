@@ -240,13 +240,16 @@ def test_device_mesh_only_for_the_default_cuda_device(monkeypatch):
 
 
 def test_execute_programs_over_a_mesh(cohort, monkeypatch):
-    from vcf2prot_tpu.frontend.fasta import read_fasta
-    from vcf2prot_tpu.native_bridge import compile_cohort_native
+    """Programs compiled by the port's own bridge."""
+    from vcf2prot_tpu_torch.compiler.haplotype import RefBlob as PortBlob
+    from vcf2prot_tpu_torch.compiler.qc import QcConfig as PortQc
+    from vcf2prot_tpu_torch.frontend.fasta import read_fasta
+    from vcf2prot_tpu_torch.native_bridge import compile_cohort_native
 
     vcf, fasta = cohort
     ref_seqs = read_fasta(fasta)
-    blob = RefBlob.from_ref_seqs(ref_seqs)
-    _p, programs, _w = compile_cohort_native(vcf, ref_seqs, blob, QcConfig())
+    blob = PortBlob.from_ref_seqs(ref_seqs)
+    _p, programs, _w = compile_cohort_native(vcf, ref_seqs, blob, PortQc())
     chunks = mesh_of(monkeypatch, 4)
     outs = pipeline.execute_programs(programs, blob, Engine.GPU,
                                      chunk_res_bytes=SMALL_CHUNK)

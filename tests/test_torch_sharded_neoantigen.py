@@ -261,14 +261,15 @@ def test_neoantigen_only_pipeline_over_a_mesh(tmp_path, monkeypatch):
             chunk_res_bytes=2048,
         ))
     # neo chunks keep chunk_res_bytes: not multiplied by the mesh size
-    from vcf2prot_tpu.compiler.qc import default_qc
-    from vcf2prot_tpu.frontend.fasta import read_fasta
-    from vcf2prot_tpu.native_bridge import compile_cohort_native
-    from vcf2prot_tpu.pipeline import _chunk_indices
+    from vcf2prot_tpu_torch.compiler.haplotype import RefBlob as PortBlob
+    from vcf2prot_tpu_torch.compiler.qc import default_qc
+    from vcf2prot_tpu_torch.frontend.fasta import read_fasta
+    from vcf2prot_tpu_torch.native_bridge import compile_cohort_native
+    from vcf2prot_tpu_torch.pipeline import _chunk_indices
 
     ref_seqs = read_fasta(fa)
     _p, flat, _w = compile_cohort_native(
-        vcf, ref_seqs, RefBlob.from_ref_seqs(ref_seqs), default_qc())
+        vcf, ref_seqs, PortBlob.from_ref_seqs(ref_seqs), default_qc())
     assert len(calls) == len(_chunk_indices(flat, 2048, True)) > 1
     assert set(calls) == {4}
     assert len(os.listdir(tmp_path / "mesh")) == 4

@@ -1,16 +1,16 @@
 """vcf2prot_tpu_torch: the PyTorch/CUDA port of vcf2prot_tpu.
 
 Same product as ``vcf2prot_tpu``: one personalized-proteome FASTA per sample
-from a phased, bcftools/csq-annotated VCF and a reference proteome. The host
-tier (VCF frontend, compiler, packing, writers, stats, neoantigen candidate
-collection and the scoring head's numpy weights) is imported from
-``vcf2prot_tpu``, whose host modules import no JAX; this package owns only
-what touches the device: the engine selection, the GPU executor and
-validator, the neoantigen scoring head, cohort batch, device-resident
-chain and trainer (``downstream/``; hand-written CUDA kernels under
-``csrc/``), the multi-device and multi-host layer (``parallel/``: a mesh of
-``torch.device``s, the sharded executor and chain, per-host sample
-blocks), the pipeline's device branches and the CLI.
+from a phased, bcftools/csq-annotated VCF and a reference proteome. The
+package stands alone: its host tier (VCF frontend, compiler, native bridge,
+packing, host engines, writers, stats, neoantigen candidate collection and
+the scoring head's numpy weights) is its own copy of ``vcf2prot_tpu``'s,
+under the same module paths, and it imports nothing of ``vcf2prot_tpu``.
+On the device it has the engine selection, the GPU executor and validator,
+the neoantigen scoring head, cohort batch, device-resident chain and
+trainer (``downstream/``; hand-written CUDA kernels under ``csrc/``), and
+the multi-device and multi-host layer (``parallel/``: a mesh of
+``torch.device``s, the sharded executor and chain, per-host sample blocks).
 
     from vcf2prot_tpu_torch import PipelineConfig, run_pipeline, Engine
     result = run_pipeline(PipelineConfig(

@@ -1,9 +1,18 @@
 """Command-line interface of the port.
 
-The flags are ``vcf2prot_tpu``'s (reference-compatible, cli.rs:104-172), with
-the engine flag's meaning changed:
+Flag-compatible with the reference CLI (reference: src/parts/cli.rs:104-172)
+and with ``vcf2prot_tpu``'s, with the engine flag's meaning changed:
 
-  -g/--engine   st | mt | gpu (= cuda, the CUDA device) | auto
+  -f/--vcf_file      phased, bcftools/csq-annotated VCF (required)
+  -r/--fasta_ref     reference proteome FASTA (required)
+  -o/--output_path   output directory (required)
+  -g/--engine        st | mt | gpu (= cuda, the CUDA device) | auto
+  -v/--verbose       stage timestamps
+  -s/--stats         write the three statistics TSVs
+  -i/--write_i_map   dump per-sample intermediate maps as JSON
+  -a/--write_all     also emit unaltered reference sequences per haplotype
+  -c/--compressed    gzip output FASTAs
+  -w/--single_thread write files from a single thread
 
 ``gpu`` is the CUDA engine here and the TPU engine in ``vcf2prot_tpu``; ``-g
 tpu`` is refused, and ``-g gpu`` without a CUDA device exits with an error
@@ -12,44 +21,125 @@ instead of running on the host.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
-from vcf2prot_tpu import cli as _ref_cli
-from vcf2prot_tpu.cli import check_paths
-from vcf2prot_tpu.compiler.qc import default_qc
-
+from .compiler.qc import default_qc
 from .pipeline import PipelineConfig, run_pipeline
 from .runtime.engine import Engine
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _ref_cli.build_parser()
-    p.prog = "vcf2prot-tpu-torch"
-    actions = p._option_string_actions
-    actions["--engine"].help = (
-        "execution engine: st, mt, gpu (= cuda, the CUDA device) or auto "
-        "(default auto: gpu when a CUDA device is present, else mt)"
+    p = argparse.ArgumentParser(
+        prog="vcf2prot-tpu-torch",
+        description=(
+            "Generate personalized proteomes (one FASTA per sample) from a "
+            "phased, bcftools/csq-annotated VCF and a reference proteome."
+        ),
     )
-    actions["--profile"].help = (
-        "write a torch.profiler trace of the execute stage to DIR/trace.json"
+    p.add_argument("-f", "--vcf_file", default="", help="path to the input VCF")
+    p.add_argument("-r", "--fasta_ref", required=True, help="reference proteome FASTA")
+    p.add_argument("-o", "--output_path", required=True, help="output directory")
+    p.add_argument(
+        "-g",
+        "--engine",
+        default="auto",
+        help=(
+            "execution engine: st, mt, gpu (= cuda, the CUDA device) or auto "
+            "(default auto: gpu when a CUDA device is present, else mt)"
+        ),
     )
-    actions["--neoantigen_k"].help = (
-        "also write <proband>.neoantigens.tsv: mutation-overlapping K-mers "
-        "per haplotype, ranked by the scoring head (fp32 host math per "
-        "sample unless --neoantigen_device or --neoantigen_only)"
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-s", "--stats", action="store_true")
+    p.add_argument("-i", "--write_i_map", action="store_true")
+    p.add_argument("-a", "--write_all", action="store_true")
+    p.add_argument("-c", "--compressed", action="store_true")
+    p.add_argument("-w", "--single_thread", action="store_true")
+    p.add_argument(
+        "--threads", type=int, default=0, help="host worker threads (0 = auto)"
     )
-    actions["--neoantigen_device"].help = (
-        "score the cohort's neoantigen candidates in one bf16 batch on the "
-        "CUDA card (on the CPU when there is none) instead of per-sample "
-        "host math"
+    p.add_argument(
+        "--resume_int_maps",
+        default="",
+        metavar="DIR",
+        help="resume from an int_maps/ checkpoint directory (skips -f parsing)",
     )
-    actions["--neoantigen_only"].help = (
-        "skip FASTA output; the run's product is the neoantigen TSVs "
-        "(needs --neoantigen_k). With -g gpu/auto the whole chain "
-        "(execute, masks, scoring, top-k) stays on the card: only "
-        "[samples, top] rows are copied to the host"
+    p.add_argument(
+        "--profile",
+        default="",
+        metavar="DIR",
+        help=(
+            "write a torch.profiler trace of the execute stage to "
+            "DIR/trace.json"
+        ),
+    )
+    p.add_argument(
+        "--neoantigen_k",
+        type=int,
+        default=0,
+        metavar="K",
+        help=(
+            "also write <proband>.neoantigens.tsv: mutation-overlapping "
+            "K-mers per haplotype, ranked by the scoring head (fp32 host "
+            "math per sample unless --neoantigen_device or --neoantigen_only)"
+        ),
+    )
+    p.add_argument(
+        "--neoantigen_device",
+        action="store_true",
+        help=(
+            "score the cohort's neoantigen candidates in one bf16 batch on "
+            "the CUDA card (on the CPU when there is none) instead of "
+            "per-sample host math"
+        ),
+    )
+    p.add_argument(
+        "--neoantigen_only",
+        action="store_true",
+        help=(
+            "skip FASTA output; the run's product is the neoantigen TSVs "
+            "(needs --neoantigen_k). With -g gpu/auto the whole chain "
+            "(execute, masks, scoring, top-k) stays on the card: only "
+            "[samples, top] rows are copied to the host"
+        ),
+    )
+    p.add_argument(
+        "--neoantigen_params",
+        default="",
+        metavar="NPZ",
+        help=(
+            "load trained scoring-head weights (embed/w1/b1/w2/b2 arrays) "
+            "instead of the deterministic scaffold initialization"
+        ),
+    )
+    p.add_argument(
+        "--neoantigen_top",
+        type=int,
+        default=200,
+        metavar="N",
+        help="ranked rows kept per sample in the neoantigen TSVs",
+    )
+    p.add_argument(
+        "--no-native",
+        action="store_true",
+        help="disable the C++ fast path (use the Python reference path)",
     )
     return p
+
+
+def check_paths(args) -> None:
+    """Existence checks mirroring the reference (cli.rs:32-55)."""
+    checks = [(args.fasta_ref, "FASTA file")]
+    if not args.resume_int_maps:
+        checks.append((args.vcf_file, "VCF file"))
+    for path, what in checks:
+        if not os.path.exists(path):
+            sys.exit(f"The provided {what}: {path} does not exist")
+    if not os.path.isdir(args.output_path):
+        sys.exit(
+            f"The provided output path: {args.output_path} does not exist or "
+            "is not a directory"
+        )
 
 
 def main(argv=None) -> int:

@@ -1,13 +1,13 @@
 """Cohort-batched neoantigen scoring (``--neoantigen_device``) on the card.
 
-The port of ``vcf2prot_tpu/downstream/cohort.py:109-212``. Candidate
-collection stays on the host and is shared (``CohortCandidates``,
-``collect_candidates``): every sample's mutation-overlapping k-mers are
-gathered into one ``[M, k]`` array, which is scored in one pass of the
-port's head and written as per-sample TSVs of the reference's schema and
-ranking. The reference padded M to a power-of-two bucket so that jit
-compiled once per bucket; eager kernels do not recompile, so the port
-scores exactly M rows, in blocks of ``ScoringHead.block_rows`` rows.
+The port of ``vcf2prot_tpu/downstream/cohort.py``. Candidate collection
+stays on the host (``CohortCandidates``, ``collect_candidates``, copies of
+the reference's): every sample's mutation-overlapping k-mers are gathered
+into one ``[M, k]`` array, which is scored in one pass of the port's head
+and written as per-sample TSVs of the reference's schema and ranking. The
+reference padded M to a power-of-two bucket so that jit compiled once per
+bucket; eager kernels do not recompile, so the port scores exactly M rows,
+in blocks of ``ScoringHead.block_rows`` rows.
 """
 from __future__ import annotations
 
@@ -15,12 +15,94 @@ import os
 
 import numpy as np
 
-from vcf2prot_tpu.downstream.cohort import collect_candidates
-from vcf2prot_tpu.downstream.report import _span_of
-
+from .report import _host_candidates, _span_of
 from .scoring import ScoringHead, init_params, score_windows
 
 HEADER = "peptide\thaplotype\ttranscript\tprotein_start\tscore\n"
+
+
+def _collect_candidates_fast(prog, tape, k: int):
+    """Candidate collection for one haplotype: the C++ single pass when the
+    native module is loaded (array-backed annotations required), else the
+    numpy oracle (report._host_candidates). Tests pin array equality, so
+    either path feeds the batched scorer identically.
+    """
+    from ..native_bridge import load_native
+
+    native = load_native()
+    ann = prog.annotations
+    if (
+        native is not None
+        and hasattr(native, "collect_candidates")
+        and hasattr(ann, "starts")
+        and isinstance(prog.alt, (bytes, bytearray))
+    ):
+        wins, starts = native.collect_candidates(
+            np.ascontiguousarray(prog.exe, np.uint8),
+            np.ascontiguousarray(prog.src, np.int64),
+            np.ascontiguousarray(prog.length, np.int64),
+            np.ascontiguousarray(prog.dst, np.int64),
+            prog.alt,
+            np.ascontiguousarray(ann.starts, np.int64),
+            np.ascontiguousarray(ann.ends, np.int64),
+            np.ascontiguousarray(tape, np.uint8),
+            int(prog.res_len),
+            int(k),
+        )
+        w = np.frombuffer(wins, np.uint8).reshape(-1, k)
+        s = np.frombuffer(starts, np.int64)
+        return w, s
+    return _host_candidates(prog, tape, k)
+
+
+class CohortCandidates:
+    """Incremental candidate accumulator.
+
+    The pipeline's device path streams execution in chunks and drops each
+    tape after its sample is written; candidates (k bytes per window) are the
+    only thing retained, so cohort memory stays bounded by hit count, not
+    tape bytes.
+    """
+
+    def __init__(self, k: int):
+        import threading
+
+        self.k = k
+        self._wins, self._samples, self._haps, self._starts = [], [], [], []
+        # the pipeline's MT writer fan-out calls add() from worker threads;
+        # the four parallel lists must stay index-aligned
+        self._lock = threading.Lock()
+
+    def add(self, sample_idx: int, hap_no: int, prog, tape):
+        w, s = _collect_candidates_fast(prog, np.asarray(tape), self.k)
+        if w.shape[0] == 0:
+            return
+        with self._lock:
+            self._wins.append(w)
+            self._starts.append(s)
+            self._samples.append(np.full(w.shape[0], sample_idx, np.int32))
+            self._haps.append(np.full(w.shape[0], hap_no, np.int8))
+
+    def arrays(self):
+        if not self._wins:
+            return (np.empty((0, self.k), np.uint8), np.empty(0, np.int32),
+                    np.empty(0, np.int8), np.empty(0, np.int64))
+        return (np.concatenate(self._wins), np.concatenate(self._samples),
+                np.concatenate(self._haps), np.concatenate(self._starts))
+
+
+def collect_candidates(progs, tapes, k: int):
+    """Gather every (sample, haplotype) pair's mutation-overlapping k-mers.
+
+    ``progs``/``tapes``: flat lists, 2 entries per sample (hap1, hap2), as
+    produced by the pipeline. Returns ``(windows u8[M, k], sample i32[M],
+    hap i8[M], starts i64[M])``; M = 0 gives empty arrays of the right shape.
+    """
+    acc = CohortCandidates(k)
+    for idx, (prog, tape) in enumerate(zip(progs, tapes)):
+        acc.add(idx // 2, idx % 2 + 1, prog, tape)
+    return acc.arrays()
+
 
 
 def as_head(params, k: int, device) -> ScoringHead:

@@ -6,8 +6,8 @@ pair-aligned chunk runs
     execute (K1)  ->  candidate mask  ->  compaction  ->  score (K3 + fp32
     products)  ->  per-sample top-k  ->  ONE fetch of [S, top, 8+k] rows
 
-and only the rows cross to the host, where the shared ``_unpack_rows`` /
-``_decode_rows`` read them.
+and only the rows cross to the host, where ``_unpack_rows`` /
+``_decode_rows`` (numpy, copies of the reference's) read them.
 
 What the TPU chain needed and the card does not:
 
@@ -37,20 +37,98 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vcf2prot_tpu.downstream.device_resident import (
-    _chunk_annotation_spans,
-    _decode_rows,
-    _unpack_rows,
-)
-from vcf2prot_tpu.downstream.report import _span_of
-from vcf2prot_tpu.pipeline import DEFAULT_NEO_CHUNK_RES_BYTES, _chunk_indices
-from vcf2prot_tpu.runtime import cpu_engine
-from vcf2prot_tpu.runtime.pack import pack_cohort
-
+from ..pipeline import DEFAULT_NEO_CHUNK_RES_BYTES, _chunk_indices
+from ..runtime import cpu_engine
 from ..runtime.gpu_engine import GpuEngine, to_device
+from ..runtime.pack import pack_cohort
 from .cohort import HEADER, as_head, collect_candidates, score_cohort
+from .report import _span_of
+from .scoring import layer_names
 
 NEG = float("-inf")
+
+
+def dense_blk(out_bucket: int, params: dict) -> int:
+    """lax.map tile size for the dense pass, scaled so the widest fp32
+    hidden activation [blk, H] stays ~256 MB regardless of head width
+    (wide heads at the round-3 fixed 1<<19 block would materialize
+    multi-GB intermediates). VCF2PROT_DENSE_BLK caps it for tuning."""
+    import os
+
+    env = os.environ.get("VCF2PROT_DENSE_BLK")
+    if env:  # explicit override for tuning runs
+        blk = 1 << (max(int(env), 1).bit_length() - 1)
+        return min(out_bucket, max(blk, 1 << 13))
+    width = max(
+        (params[name].shape[1] for name in layer_names(params)), default=128
+    )
+    blk = max((1 << 28) // (4 * max(int(width), 128)), 1)
+    blk = 1 << (blk.bit_length() - 1)  # floor to a power of two
+    blk = max(1 << 13, blk)
+    # out_bucket is a power of two, so blk <= out_bucket always divides it
+    return min(out_bucket, blk, 1 << 19)
+
+
+def _unpack_rows(buf):
+    """Host twin of :func:`_pack_rows`: u8[..., top, 8+k] -> (f32 scores,
+    i32 positions, u8[..., top, k] bytes)."""
+    lead = buf.shape[:-1]
+    vals = np.ascontiguousarray(buf[..., :4]).view(np.float32).reshape(lead)
+    gpos = np.ascontiguousarray(buf[..., 4:8]).view(np.int32).reshape(lead)
+    return vals, gpos, buf[..., 8:]
+
+
+def _decode_rows(vals, gpos, wins, seg_start: int, hap1_len: int):
+    """One sample's ranked rows ``[(score, hap, hap_pos, peptide), ...]``
+    from its unpacked ``[top]`` slices — the SINGLE row-decode used by both
+    the single-device and dp-sharded engines (they must never drift).
+
+    The ranked prefix ends at the FIRST ``-inf`` row: pad rows sort last,
+    and a pathological real ``-inf`` score (overflowing trained weights)
+    also ends the prefix, exactly like the original break-based decode.
+    """
+    inf = np.nonzero(vals == -np.inf)[0]
+    n = int(inf[0]) if inf.size else vals.shape[0]
+    local = gpos[:n].astype(np.int64) - seg_start
+    hap = np.where(local < hap1_len, 1, 2)
+    hpos = np.where(local < hap1_len, local, local - hap1_len)
+    return [
+        (float(vals[r]), int(hap[r]), int(hpos[r]), bytes(wins[r]))
+        for r in range(n)
+    ]
+
+
+def _chunk_annotation_spans(programs, spans):
+    """Chunk-coordinate annotation (starts, ends), asserting span tiling (the
+    device validity rule depends on it); returns None if tiling is violated
+    (caller falls back to the host path)."""
+    starts, ends = [], []
+    for (p_idx, seg_start, seg_end), prog in zip(spans, programs):
+        ann = prog.annotations
+        if hasattr(ann, "starts"):
+            a_st = np.asarray(ann.starts)
+            a_en = np.asarray(ann.ends)
+        else:
+            a_st = np.fromiter((s for _n, s, _e in ann), np.int64, len(ann))
+            a_en = np.fromiter((e for _n, _s, e in ann), np.int64, len(ann))
+        if len(a_st):
+            if (
+                int(a_st[0]) != 0
+                or int(a_en[-1]) != seg_end - seg_start
+                or not np.all(a_st[1:] == a_en[:-1])
+            ):
+                return None
+        elif seg_end != seg_start:
+            return None
+        starts.append(a_st + seg_start)
+        ends.append(a_en + seg_start)
+    if not starts:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return (
+        np.concatenate(starts).astype(np.int32),
+        np.concatenate(ends).astype(np.int32),
+    )
+
 
 
 def expand_segments(vals, starts, total: int) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Peptide scoring head of the port, with its first layer as a CUDA kernel.
 
-The port of ``vcf2prot_tpu/downstream/scoring.py:119-181``: one-hot
-residues -> per-position embedding -> a dense(relu) stack -> dense(1). The
-weights are the JAX package's numpy dictionary (``init_params`` /
-``load_params``, shared); :meth:`ScoringHead.from_params` carries them
-across.
+The port of ``vcf2prot_tpu/downstream/scoring.py``: one-hot residues ->
+per-position embedding -> a dense(relu) stack -> dense(1). The weights are
+a numpy dictionary in the JAX package's schema (``init_params`` /
+``load_params``, numpy copies of the reference's, which make the same
+arrays from the same seed); :meth:`ScoringHead.from_params` carries such a
+dictionary onto a device.
 
 Numerics follow the reference's: the embedding is folded into the first
 layer in fp32 and cast to bf16 (``folded``, ``[k*21, H]``); every product
@@ -30,28 +31,119 @@ import numpy as np
 import torch
 from torch import nn
 
-from vcf2prot_tpu.downstream.device_resident import dense_blk
-from vcf2prot_tpu.downstream.peptides import _alphabet_lut
-from vcf2prot_tpu.downstream.scoring import (  # noqa: F401 (re-exported)
-    VOCAB,
-    init_params,
-    layer_names,
-    load_params,
-)
-from vcf2prot_tpu.runtime.pack import pad_to_bucket
-
 from ..runtime.build import check_launch, load_kernels
-from .peptides import as_tensor, neoantigen_candidates
+from ..runtime.pack import pad_to_bucket
+from .peptides import (
+    ALPHABET,
+    VOCAB,
+    _alphabet_lut,
+    as_tensor,
+    neoantigen_candidates,
+)
 
 _LUT = torch.from_numpy(_alphabet_lut()).long()
-# K3 stages one column of the k*21-row table in shared memory at the least
-# (k*21*2 bytes + the 256-byte lookup, at most 227 KB a block)
-MAX_K3_K = (227 * 1024 - 256) // (VOCAB * 2)
+# K3 stages an 8-column slice of the k*21-row bf16 table in shared memory
+# at the least (k*21*16 bytes, at most 227 KB a block)
+MAX_K3_K = (227 * 1024) // (VOCAB * 16)
 # K4 sums one column of a [k*21 + 1]-row fp32 table in shared memory at the
 # least; rows are cut into tiles of K4_TILE_ROWS, at most K4_MAX_TILES of
 # them (each tile's partial table is [k*21 + 1, H] fp32 of scratch)
 MAX_K4_K = ((227 * 1024 - 256) // 4 - 1) // VOCAB
 K4_TILE_ROWS, K4_MAX_TILES = 64, 512
+
+
+def init_params(k: int = 9, embed_dim: int = 32, hidden=128,
+                depth: int = 1, seed: int = 0) -> dict:
+    """Deterministic He-style initialization of the scoring head.
+
+    ``hidden`` is one width (int) or a per-layer width sequence; ``depth``
+    repeats an int width that many times. The default (128x1) is the
+    lightweight scaffold; production MHC-presentation predictors are
+    wider/deeper -- the whole chain (host + device + training) accepts any
+    (embed_dim, hidden, depth), see ARCHITECTURE 2.6's head-size sweep.
+    """
+    rng = np.random.default_rng(seed)
+
+    def dense(n_in, n_out):
+        w = rng.standard_normal((n_in, n_out)) * np.sqrt(2.0 / n_in)
+        return w.astype(np.float32), np.zeros(n_out, dtype=np.float32)
+
+    widths = list(hidden) if np.ndim(hidden) else [int(hidden)] * depth
+    if not widths:
+        raise ValueError("at least one hidden layer is required")
+    embed = (rng.standard_normal((VOCAB, embed_dim)) * 0.1).astype(np.float32)
+    params = {"embed": embed}
+    n_in = k * embed_dim
+    for i, width in enumerate(widths + [1], start=1):
+        w, b = dense(n_in, width)
+        params[f"w{i}"] = w
+        params[f"b{i}"] = b
+        n_in = width
+    return params
+
+
+def layer_names(params: dict) -> list:
+    """Dense-layer weight keys in application order (``w1``..``wN``; the
+    last is the [H, 1] output head)."""
+    return sorted(
+        (key for key in params if key[0] == "w" and key[1:].isdigit()),
+        key=lambda key: int(key[1:]),
+    )
+
+
+def load_params(path: str, k: int) -> dict:
+    """Load trained scoring-head weights from an ``.npz`` file.
+
+    Expected arrays: ``embed [VOCAB, E]`` plus a dense stack ``w1 [k*E, H1]``,
+    ``b1 [H1]``, ..., ``wN [H(N-1), 1]``, ``bN [1]`` for any depth N >= 2.
+    Shapes are validated against ``k`` so a mismatched peptide length fails
+    loudly at load time, not as a silent device-shape error mid-cohort.
+    """
+    data = np.load(path)
+    if "embed" not in data.files:
+        raise ValueError(f"scoring params {path} missing arrays: ['embed']")
+    names = layer_names({name: None for name in data.files})
+    if len(names) < 2 or names != [f"w{i}" for i in
+                                   range(1, len(names) + 1)]:
+        raise ValueError(
+            f"scoring params {path} missing arrays: needs a contiguous "
+            f"dense stack w1..wN (N >= 2); found {names}"
+        )
+    missing = {f"b{i}" for i in range(1, len(names) + 1)} - set(data.files)
+    if missing:
+        raise ValueError(
+            f"scoring params {path} missing arrays: {sorted(missing)}"
+        )
+    params = {
+        name: np.asarray(data[name], np.float32)
+        for name in ["embed"]
+        + [key for i in range(1, len(names) + 1) for key in (f"w{i}", f"b{i}")]
+    }
+    vocab, embed_dim = params["embed"].shape
+    if vocab != VOCAB:
+        raise ValueError(
+            f"embed vocab {vocab} != expected {VOCAB} "
+            f"(alphabet {ALPHABET!r} + other)"
+        )
+    n_in = k * embed_dim
+    for i, name in enumerate(names, start=1):
+        got_in, got_out = params[name].shape
+        if got_in != n_in:
+            if i == 1:
+                raise ValueError(
+                    f"w1 expects {got_in} inputs but k={k} x "
+                    f"embed={embed_dim} gives {n_in}"
+                )
+            raise ValueError(
+                f"{name} expects {got_in} inputs but the previous layer "
+                f"emits {n_in}"
+            )
+        if params[f"b{i}"].shape != (got_out,):
+            raise ValueError(f"b{i} shape disagrees with {name}")
+        n_in = got_out
+    if n_in != 1:
+        raise ValueError("output head must be [H, 1] weights + [1] bias")
+    return params
 
 
 def _check_windows(buf, pos, k) -> None:
@@ -122,6 +214,12 @@ def window_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
     :func:`window_layer1_reference`.
     """
     _check_layer1_args(buf, pos, k, table, b1)
+    return _launch_layer1(buf, pos, k, table, b1)
+
+
+def _launch_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
+    """:func:`window_layer1` on checked arguments: K3's launch alone, with
+    no wait for the device (the bounds check waits once)."""
     if buf.device.type == "cpu":
         return window_layer1_reference(buf, pos, k, table, b1)
     if buf.device.type != "cuda":
@@ -352,6 +450,8 @@ class ScoringHead(nn.Module):
         """Rows scored at once for ``m`` windows: the reference's
         ``dense_blk``, which holds the widest fp32 activation ``[rows, H]``
         near 256 MB."""
+        from .device_resident import dense_blk
+
         shapes = {"w1": self.table}
         shapes.update({f"w{i}": getattr(self, f"w{i}") for i in self.layers})
         return dense_blk(pad_to_bucket(m), shapes)
@@ -369,11 +469,15 @@ class ScoringHead(nn.Module):
 
     def score_positions(self, buf, pos) -> torch.Tensor:
         """fp32 scores of the windows ``buf[pos : pos + k]``, in blocks of
-        :meth:`block_rows` rows."""
+        :meth:`block_rows` rows. Every window's bounds are checked once,
+        with one wait for the device; the blocks' K3 launches then wait
+        for nothing."""
         out = torch.empty(pos.numel(), dtype=torch.float32, device=buf.device)
+        _check_layer1_args(buf, pos, self.k, self.table, self.b1)
         blk = self.block_rows(pos.numel())
         for s in range(0, pos.numel(), blk):
-            out[s:s + blk] = self.rest(self.layer1(buf, pos[s:s + blk]))
+            out[s:s + blk] = self.rest(_launch_layer1(
+                buf, pos[s:s + blk], self.k, self.table, self.b1))
         return out
 
 

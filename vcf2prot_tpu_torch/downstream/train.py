@@ -51,14 +51,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vcf2prot_tpu.downstream.train import (  # noqa: F401 (re-exported)
-    _bucket,
-    auc,
-    save_params,
-)
-
 from ..parallel.sharded import as_mesh, per_device
 from .scoring import ScoringHead, TrainableHead, init_params, score_windows
+
+
+def _bucket(n: int, floor: int = 256) -> int:
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
+
 
 
 def _epoch_orders(seed: int, padded: int, epochs: int, device):
@@ -208,6 +210,33 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
         for e, row in enumerate(losses.cpu().numpy()):
             print(f"epoch {e + 1}/{epochs}: loss {row.mean():.5f}")
     return {name: out[name] for name in sorted(out)}
+
+
+def save_params(path: str, params: dict) -> None:
+    """Save trained weights in the ``--neoantigen_params`` schema
+    (scoring.load_params validates shapes on the way back in); any head
+    width/depth round-trips."""
+    np.savez(
+        path,
+        **{name: np.asarray(v, np.float32) for name, v in params.items()},
+    )
+
+
+def auc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Rank-based AUC (the ranking paths sort by score, so ranking quality
+    is the metric that matters)."""
+    scores = np.asarray(scores, np.float64)
+    labels = np.asarray(labels) > 0.5
+    pos, neg = scores[labels], scores[~labels]
+    if not len(pos) or not len(neg):
+        return float("nan")
+    order = np.argsort(np.concatenate([pos, neg]), kind="stable")
+    ranks = np.empty(len(order), np.float64)
+    ranks[order] = np.arange(1, len(order) + 1)
+    return float(
+        (ranks[: len(pos)].sum() - len(pos) * (len(pos) + 1) / 2)
+        / (len(pos) * len(neg))
+    )
 
 
 def read_tsv(path):

@@ -13,8 +13,6 @@ from __future__ import annotations
 import dataclasses
 import os
 
-from vcf2prot_tpu.parallel.multihost import count_samples
-
 __all__ = ["count_samples", "host_sample_shard", "initialize_distributed",
            "run_multihost_pipeline"]
 
@@ -65,6 +63,12 @@ def host_sample_shard(n_samples: int, process_index: int = None,
     base, extra = divmod(n_samples, pc)
     start = pi * base + min(pi, extra)
     return list(range(start, start + base + (1 if pi < extra else 0)))
+
+
+def count_samples(vcf_path) -> int:
+    from ..frontend.vcf_reader import read_vcf
+
+    return len(read_vcf(vcf_path).probands)
 
 
 def run_multihost_pipeline(cfg):

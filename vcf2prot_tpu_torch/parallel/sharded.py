@@ -2,7 +2,7 @@
 
 The twin of ``vcf2prot_tpu/parallel/sharded.py``. Haplotype programs are
 partitioned into one shard per mesh device, balanced by result bytes
-(``partition_programs``, shared), and each shard is packed and executed
+(``partition_programs``), and each shard is packed and executed
 by K1 on its own device. The proteome blob (and a pooled alt tape) is
 uploaded once per distinct device; no tensor crosses devices.
 
@@ -21,14 +21,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vcf2prot_tpu.compiler.haplotype import RefBlob
-from vcf2prot_tpu.parallel.sharded import partition_programs
-from vcf2prot_tpu.runtime import cpu_engine
-from vcf2prot_tpu.runtime.pack import pack_cohort, program_is_contiguous
-
+from ..compiler.haplotype import RefBlob
+from ..runtime import cpu_engine
 from ..runtime.gpu_engine import GpuEngine
+from ..runtime.pack import pack_cohort, program_is_contiguous
 
 __all__ = ["ShardedEngine", "partition_programs", "per_device"]
+
+
+def partition_programs(programs, n_shards: int):
+    """Balance haplotype programs across shards by result bytes (greedy)."""
+    order = sorted(range(len(programs)), key=lambda i: -programs[i].res_len)
+    shards = [[] for _ in range(n_shards)]
+    loads = [0] * n_shards
+    for i in order:
+        s = loads.index(min(loads))
+        shards[s].append(i)
+        loads[s] += programs[i].res_len
+    return shards
 
 
 def per_device(mesh, make) -> list:

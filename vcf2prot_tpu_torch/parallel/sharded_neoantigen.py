@@ -2,7 +2,7 @@
 
 The twin of ``vcf2prot_tpu/parallel/sharded_neoantigen.py``. The samples
 (haplotype pairs) of a chunk are partitioned over the mesh, balanced by
-result bytes (``partition_pairs``, shared), and each shard runs the
+result bytes (``partition_pairs``), and each shard runs the
 single-device chain (:class:`DeviceNeoantigenEngine`: K1, the candidate
 mask, compaction, K3 and the rank) on its own device. No collective
 appears: samples are independent, and the proteome blob, a pooled alt
@@ -22,19 +22,36 @@ from __future__ import annotations
 
 import copy
 
-from vcf2prot_tpu.compiler.haplotype import RefBlob
-from vcf2prot_tpu.parallel.sharded_neoantigen import partition_pairs
-from vcf2prot_tpu.runtime.pack import program_is_contiguous
-
+from ..compiler.haplotype import RefBlob
 from ..downstream.device_resident import (
     ChunkHandle,
     DeviceNeoantigenEngine,
     PlannedChunk,
 )
 from ..downstream.scoring import ScoringHead
+from ..runtime.pack import program_is_contiguous
 from .sharded import as_mesh, per_device
 
 __all__ = ["ShardedNeoantigenEngine", "partition_pairs"]
+
+
+def partition_pairs(programs, n_shards: int):
+    """Partition (hap1, hap2) pairs across shards, balanced by result bytes;
+    returns per-shard lists of PAIR indices (greedy longest-first)."""
+    n_pairs = len(programs) // 2
+    sizes = [
+        programs[2 * i].res_len + programs[2 * i + 1].res_len
+        for i in range(n_pairs)
+    ]
+    order = sorted(range(n_pairs), key=lambda i: -sizes[i])
+    shards = [[] for _ in range(n_shards)]
+    loads = [0] * n_shards
+    for i in order:
+        s = loads.index(min(loads))
+        shards[s].append(i)
+        loads[s] += sizes[i]
+    # keep original sample order inside each shard (stable row decode)
+    return [sorted(s) for s in shards]
 
 
 class ShardedNeoantigenEngine:

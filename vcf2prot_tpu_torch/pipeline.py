@@ -1,24 +1,28 @@
 """End-to-end pipeline of the port.
 
-The host engines (``st``/``mt``) are ``vcf2prot_tpu.pipeline.run_pipeline``
-itself, whose host branches import no JAX, except with
-``--neoantigen_device``: the reference scores that cohort batch with JAX,
-so the port runs the host loop itself and scores with its own head (on
-the card when one is present, else its plain version on the CPU). The GPU
-engine runs the same host prologue (parse + compile, stats, int-map dumps)
-and then either
+The counterpart of ``vcf2prot_tpu/pipeline.py``: parse the VCF ->
+per-sample intermediate maps -> (optional dumps/stats) -> compile ->
+execute -> write. The host prologue (``_compile``: parse + compile on the
+native tier when it applies, stats and int-map dumps) is the port's own
+copy of the reference's and is shared by every engine. Then
 
-* streams pair-aligned chunks through :class:`GpuEngine`: one chunk is
-  dispatched to the device while the previous one is collected and its
-  samples written (FASTAs, and the per-sample or cohort-batch neoantigen
-  reports), so host memory stays bounded by the chunk size; or
-* with ``--neoantigen_only``, runs the device-resident chain
+* the host engines (``st``/``mt``) execute and write each sample in one
+  step, ``mt`` through a thread pool (the reference's host loop); with
+  ``--neoantigen_device`` the cohort's candidates are scored in one batch
+  by the port's head (on the card when one is present, else its plain
+  version on the CPU);
+* the GPU engine streams pair-aligned chunks through :class:`GpuEngine`:
+  one chunk is dispatched to the device while the previous one is
+  collected and its samples written (FASTAs, and the per-sample or
+  cohort-batch neoantigen reports), so host memory stays bounded by the
+  chunk size; or
+* with ``--neoantigen_only``, the GPU engine runs the device-resident chain
   (``downstream/device_resident.py``), which fetches only per-sample rows.
 
 With the device left at the default ``"cuda"`` and more than one local CUDA
-device (``parallel.mesh.make_mesh``), both run sharded over every device,
-as the reference does on a host with several TPU chips: FASTA chunks of
-``chunk_res_bytes`` per device through
+device (``parallel.mesh.make_mesh``), the GPU engine runs sharded over every
+device, as the reference does on a host with several TPU chips: FASTA chunks
+of ``chunk_res_bytes`` per device through
 :class:`~vcf2prot_tpu_torch.parallel.sharded.ShardedEngine`, and the chain
 through :class:`~vcf2prot_tpu_torch.parallel.sharded_neoantigen.
 ShardedNeoantigenEngine` with chunks of the single-device size. An explicit
@@ -30,50 +34,151 @@ import os
 import sys
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field
 
-from vcf2prot_tpu import pipeline as _ref
-from vcf2prot_tpu.compiler.haplotype import RefBlob
-from vcf2prot_tpu.compiler.qc import default_qc
-from vcf2prot_tpu.frontend import fasta
-from vcf2prot_tpu.io.writers import PersonalizedProteome, write_intmap2json
-from vcf2prot_tpu.pipeline import (
-    DEFAULT_CHUNK_RES_BYTES,
-    DEFAULT_NEO_CHUNK_RES_BYTES,
-    PipelineResult,
-    _chunk_indices,
-    _validate_host_programs,
-    _write_stats_tables,
-    parse_vcf_to_int_maps,
+from .compiler.haplotype import RefBlob
+from .compiler.qc import QcConfig, default_qc
+from .frontend import fasta, vcf_reader
+from .frontend.maps import build_int_map_from_early
+from .io.writers import (
+    PersonalizedProteome,
+    write_intmap2json,
+    write_num_mutation_per_proband,
+    write_number_of_mutations_per_transcript,
+    write_type_mutations_per_patient,
 )
-from vcf2prot_tpu.runtime import cpu_engine
-from vcf2prot_tpu.runtime.engine import Engine as _RefEngine
-from vcf2prot_tpu.stats.summary import compute_stats
-from vcf2prot_tpu.utils.timers import StageTimer
-
+from .runtime import cpu_engine
 from .runtime.engine import Engine, resolve_auto
-from .utils.timers import torch_trace
+from .stats.summary import compute_stats
+from .utils.timers import StageTimer, torch_trace
 
 __all__ = [
-    "DEFAULT_CHUNK_RES_BYTES", "PipelineConfig", "PipelineResult",
-    "execute_programs", "run_pipeline",
+    "DEFAULT_CHUNK_RES_BYTES", "DEFAULT_NEO_CHUNK_RES_BYTES",
+    "PipelineConfig", "PipelineResult", "execute_programs", "run_pipeline",
 ]
+
+# Haplotype programs are executed in chunks bounded by result-tape bytes so
+# device buffers stay well under device memory while still amortizing
+# dispatch.
+DEFAULT_CHUNK_RES_BYTES = 256 * 1024 * 1024
+# The device-resident neoantigen chain's chunks, the reference's default.
+DEFAULT_NEO_CHUNK_RES_BYTES = 128 * 1024 * 1024
 
 
 @dataclass
-class PipelineConfig(_ref.PipelineConfig):
+class PipelineConfig:
+    vcf_path: str
+    fasta_path: str
+    outdir: str
     engine: Engine = Engine.GPU
+    verbose: bool = False
+    compute_stats: bool = False
+    write_int_map: bool = False
+    write_all: bool = False
+    write_compressed: bool = False
+    single_thread_writes: bool = False
+    num_threads: int = 0
+    # None = per-stage default (DEFAULT_CHUNK_RES_BYTES for FASTA output,
+    # DEFAULT_NEO_CHUNK_RES_BYTES for the device-resident neoantigen chain);
+    # an explicit value applies to both stages
+    chunk_res_bytes: int = None
+    qc: QcConfig = None
+    # use the C++ frontend/compiler when available; stats and int-map dumps
+    # need the Python intermediate maps and route through the Python path
+    use_native: bool = True
+    # resume from a previously dumped int_maps/ directory (skips VCF parsing)
+    resume_int_maps: str = ""
+    # restrict to a subset of sample indices (multi-host shard assignment)
+    sample_indices: list = None
+    # write a torch.profiler trace of the execute stage to this directory
+    profile_dir: str = ""
+    # 0 = off; k>0 writes <proband>.neoantigens.tsv with ranked
+    # mutation-overlapping k-mers per sample (downstream/report.py)
+    neoantigen_k: int = 0
+    # score the cohort's candidate windows in ONE batch of the port's head
+    # (downstream/cohort.py) instead of per-sample host math
+    neoantigen_device: bool = False
+    # .npz with trained scoring-head weights (downstream/scoring.load_params);
+    # empty = the deterministic scaffold initialization
+    neoantigen_params: str = ""
+    # skip FASTA output entirely: the run's product is the neoantigen TSVs.
+    # On the GPU engine this runs the device-resident chain
+    # (downstream/device_resident.py): only [samples, top] rows reach the host
+    neoantigen_only: bool = False
+    # ranked rows kept per sample in the neoantigen TSVs
+    neoantigen_top: int = 200
     # torch device of the GPU engine; the CLI keeps the default, the CPU
-    # tests set "cpu" to run the kernels' plain twins
+    # tests set "cpu" to run the kernels' plain versions
     device: str = "cuda"
 
 
-def _host_config(cfg, engine: Engine):
-    """The JAX package's config for a host-engine run of ``cfg``; its
-    profiler hook is left off (it would import JAX), the caller traces."""
-    kw = {f.name: getattr(cfg, f.name) for f in fields(_ref.PipelineConfig)}
-    kw.update(engine=_RefEngine(engine.value), profile_dir="")
-    return _ref.PipelineConfig(**kw)
+@dataclass
+class PipelineResult:
+    proteomes: list = field(default_factory=list)
+    n_samples: int = 0
+    n_haplotype_seqs: int = 0
+    total_output_bytes: int = 0
+    durations: dict = field(default_factory=dict)
+
+
+def parse_vcf_to_int_maps(vcf_path, num_threads=0):
+    vcf = vcf_reader.read_vcf(vcf_path)
+    early = vcf_reader.build_early_maps(vcf, num_threads=num_threads)
+    if num_threads and num_threads > 1:
+        with ThreadPoolExecutor(max_workers=num_threads) as pool:
+            return list(pool.map(build_int_map_from_early, early))
+    return [build_int_map_from_early(e) for e in early]
+
+
+def _chunk_indices(programs, chunk_res_bytes, pair_aligned=False):
+    """Greedy chunking of haplotype programs by result size.
+
+    ``pair_aligned`` keeps (hap1, hap2) pairs in the same chunk so whole
+    samples complete chunk-by-chunk (needed for streaming writes).
+    """
+    step = 2 if pair_aligned else 1
+    chunks = []
+    cur = []
+    cur_bytes = 0
+    for i in range(0, len(programs), step):
+        group = list(range(i, min(i + step, len(programs))))
+        size = sum(programs[g].res_len for g in group)
+        if cur and cur_bytes + size > chunk_res_bytes:
+            chunks.append(cur)
+            cur = []
+            cur_bytes = 0
+        cur.extend(group)
+        cur_bytes += size
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _validate_host_programs(programs):
+    """Pre-execution contiguity validation of each task stream -- the
+    reference's DEBUG_CPU_EXEC check (gir.rs:203-229)."""
+    import numpy as np
+
+    for idx, p in enumerate(programs):
+        if p.n_tasks == 0:
+            continue
+        ends = p.dst + p.length
+        if (
+            int(p.dst[0]) != 0
+            or not np.all(p.dst[1:] == ends[:-1])
+            or int(ends[-1]) != p.res_len
+        ):
+            raise AssertionError(
+                f"DEBUG_CPU_EXEC: task stream of haplotype {idx} is not "
+                "contiguous with its result tape"
+            )
+
+
+def _write_stats_tables(outdir, per_proband, per_type, per_transcript):
+    """The three -s TSVs (shared by the native and Python stats paths)."""
+    write_num_mutation_per_proband(outdir, per_proband)
+    write_type_mutations_per_patient(outdir, per_type)
+    write_number_of_mutations_per_transcript(outdir, per_transcript)
 
 
 def execute_programs(programs, blob, engine: Engine,
@@ -82,15 +187,17 @@ def execute_programs(programs, blob, engine: Engine,
                      device="cuda"):
     """Execute haplotype programs with the selected engine; returns one uint8
     array per program."""
-    if engine is Engine.AUTO:
-        engine = resolve_auto()
-    if engine is not Engine.GPU:
-        return _ref.execute_programs(
-            programs, blob, _RefEngine(engine.value), chunk_res_bytes,
-            validate_device, validate_host,
-        )
     if validate_host:
         _validate_host_programs(programs)
+    if engine is Engine.AUTO:
+        engine = resolve_auto()
+    if engine is Engine.MT:
+        with ThreadPoolExecutor() as pool:
+            return list(pool.map(
+                lambda p: cpu_engine.execute_tasks_fast(p, blob), programs
+            ))
+    if engine is not Engine.GPU:
+        return [cpu_engine.execute_tasks(p, blob) for p in programs]
     outputs = [None] * len(programs)
     for chunk, outs in _device_chunk_results(
         programs, blob, chunk_res_bytes, validate_device, device
@@ -164,10 +271,9 @@ def _print_warnings(warnings) -> None:
 
 
 def _compile(cfg, qc, timer):
-    """Host prologue of ``vcf2prot_tpu.pipeline.run_pipeline``: read the
-    proteome, parse + compile the cohort (native tier when it applies),
-    write the stats and int-map dumps. Returns ``(ref_seqs, blob,
-    proband_names, flat_programs)``."""
+    """Host prologue of every engine: read the proteome, parse + compile
+    the cohort (native tier when it applies), write the stats and int-map
+    dumps. Returns ``(ref_seqs, blob, proband_names, flat_programs)``."""
     with timer.stage("Loading the Reference file"):
         ref_seqs = fasta.read_fasta(cfg.fasta_path)
         blob = RefBlob.from_ref_seqs(ref_seqs)
@@ -177,7 +283,7 @@ def _compile(cfg, qc, timer):
     native_result = None
     if (cfg.use_native and not cfg.write_int_map and not cfg.resume_int_maps
             and not qc.debug_txp):
-        from vcf2prot_tpu.native_bridge import compile_cohort_native
+        from .native_bridge import compile_cohort_native
 
         with timer.stage("Parsing and compiling (native)"):
             native_result = compile_cohort_native(
@@ -194,7 +300,7 @@ def _compile(cfg, qc, timer):
             probands, flat, warnings = native_result
         _print_warnings(warnings)
         if stats_blocks is not None:
-            from vcf2prot_tpu.stats.native_stats import stats_from_native
+            from .stats.native_stats import stats_from_native
 
             with timer.stage("Computing and writing the stats"):
                 _write_stats_tables(
@@ -203,7 +309,7 @@ def _compile(cfg, qc, timer):
         return ref_seqs, blob, probands, flat
 
     if cfg.resume_int_maps:
-        from vcf2prot_tpu.io.checkpoint import read_intmap_json
+        from .io.checkpoint import read_intmap_json
 
         with timer.stage("Resuming from int-map checkpoint"):
             int_maps = read_intmap_json(cfg.resume_int_maps)
@@ -223,10 +329,10 @@ def _compile(cfg, qc, timer):
             _write_stats_tables(cfg.outdir, *compute_stats(int_maps))
 
     with timer.stage("Generating personalized genomes (compile)"):
-        from vcf2prot_tpu.compiler.haplotype import (
+        from .compiler.haplotype import (
             AltPool, attach_pool, cohort_should_pool,
         )
-        from vcf2prot_tpu.compiler.proband import compile_proband
+        from .compiler.proband import compile_proband
 
         compile_cache: dict = {}
         alt_pool = AltPool() if cohort_should_pool(int_maps) else None
@@ -257,10 +363,6 @@ def _resolve(cfg) -> Engine:
 def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
     engine = _resolve(cfg)
     neo_k = cfg.neoantigen_k
-    if engine is not Engine.GPU and not (neo_k and cfg.neoantigen_device):
-        with torch_trace(cfg.profile_dir or None):
-            return _ref.run_pipeline(_host_config(cfg, engine))
-
     timer = StageTimer(cfg.verbose)
     qc = cfg.qc if cfg.qc is not None else default_qc()
     result = PipelineResult()
@@ -269,7 +371,7 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
         _validate_host_programs(flat)
     neo_params = None
     if neo_k and cfg.neoantigen_params:
-        from vcf2prot_tpu.downstream.scoring import load_params
+        from .downstream.scoring import load_params
 
         neo_params = load_params(cfg.neoantigen_params, neo_k)
 
@@ -301,7 +403,7 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
 
     neo_acc = None
     if neo_k and cfg.neoantigen_device:
-        from vcf2prot_tpu.downstream.cohort import CohortCandidates
+        from .downstream.cohort import CohortCandidates
 
         neo_acc = CohortCandidates(neo_k)
 
@@ -320,7 +422,7 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
             neo_acc.add(i, 1, hap1, h1)
             neo_acc.add(i, 2, hap2, h2)
         elif neo_k:
-            from vcf2prot_tpu.downstream.report import write_neoantigen_report
+            from .downstream.report import write_neoantigen_report
 
             write_neoantigen_report(
                 cfg.outdir, proband_names[i], (hap1, hap2), (h1, h2), neo_k,
@@ -350,8 +452,8 @@ def run_pipeline(cfg: PipelineConfig) -> PipelineResult:
                         for j in range(0, len(chunk), 2)
                     )
             else:
-                # the reference's host loop (vcf2prot_tpu/pipeline.py:
-                # 459-478): fused execute + write per sample
+                # host path: fused execute + write per sample, streamed
+                # through a thread pool -- tapes never accumulate
                 run = (cpu_engine.execute_tasks_fast if engine is Engine.MT
                        else cpu_engine.execute_tasks)
 

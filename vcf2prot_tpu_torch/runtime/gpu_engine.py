@@ -20,16 +20,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vcf2prot_tpu.compiler.haplotype import RefBlob
-from vcf2prot_tpu.runtime import cpu_engine
-from vcf2prot_tpu.runtime.pack import (
-    PackedCohort,
-    pack_cohort,
-    program_is_contiguous,
-)
-
+from ..compiler.haplotype import RefBlob
+from . import cpu_engine
 from .build import check_launch, load_kernels
 from .kernels import check_task_arrays, validate_on_device
+from .pack import PackedCohort, pack_cohort, program_is_contiguous
 
 _TORCH_DTYPE = {
     np.dtype(np.uint8): torch.uint8,
