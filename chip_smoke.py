@@ -16,8 +16,9 @@ failing the run with a non-zero exit:
    and both timed on one full 256 MiB chunk (CUDA events) beside their
    bounds; K3 bit-equal to its plain version (the same fp32 sums in the
    same order) over H 8/100/128/512 x k 8/9/11/30 x M 1/127/4,096/524,287
-   x int32/int64 positions at odd byte offsets, and on the candidate
-   windows of a 128 MiB chunk for a 128x1 and a 512x3 head, there timed
+   and H 100/128 x k 692/3,121 (its table read from device memory) x M
+   127/4,096, x int32/int64 positions at odd byte offsets, and on the
+   candidate windows of a 128 MiB chunk for a 128x1 and a 512x3 head, timed
    at the chain's block size (its launch alone, its wrapper with the
    bounds check, ``F.embedding_bag`` over the same rows as the
    yardstick, the plain version) beside its bound; the chain's stages
@@ -38,12 +39,18 @@ failing the run with a non-zero exit:
    host math) within 5e-3 (bf16 rounding; up to 2.5e-3 measured on the
    CPU over 100 k random 9-mers);
 8. K4 (the gradient of K3; run with phase 3's checks) against its plain
-   version on the card: 128x1 and 512x3 heads, k 8, 9, 11, 30 (a smaller column slice) and 600
-   (dynamic shared memory), int32 and int64 positions, windows at odd byte
-   offsets of a tape, 4,096 rows (a training batch) and 524,288 (the
-   chain's block); fp32 within rtol 1e-4 + atol 1e-5 * max|ref|, two
-   launches bit-equal, both timed beside the bound and the yardstick
-   (``torch.autograd.grad`` of ``F.embedding_bag`` w.r.t. an fp32 table);
+   versions on the card: 128x1 and 512x3 heads, k 8, 9, 11, then 30, 600,
+   2,765 and 3,121 (the positions split over the grid; k * 21 past 65,535
+   at 3,121), and 100x1 and 6x1 heads at k 11 (h1, g and the partials
+   moved element by element), int32 and int64 positions, windows at odd
+   byte offsets of a tape, 4,096 rows (a training batch) and 524,288 (the
+   chain's block); bit-equal to ``window_layer1_backward_tiled_reference`` (K4's summation
+   order), fp32 within rtol 1e-4 + atol 1e-5 * max|ref| of the
+   ``index_add_`` version, two launches bit-equal; at k = 9 its launches
+   alone and its wrapper timed at the four sizes beside the bound, the
+   previous kernel's time and the yardstick (``torch.autograd.grad`` of
+   ``F.embedding_bag`` w.r.t. an fp32 table), which neither may be slower
+   than;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -126,6 +133,18 @@ MAIN_SAMPLES, MAIN_TRANSCRIPTS, MAIN_SEED = 1536, 2000, 1
 DEBUG_SAMPLES, DEBUG_TRANSCRIPTS, DEBUG_SEED = 128, 1200, 20260817
 # K4's row counts: a training batch and the chain's block
 K4_ROWS = (4096, 524288)
+# K4's long windows at a training batch: positions split over the grid,
+# then k past the caps K3 and K4 once had (691, 2,764) and past 16-bit
+# global row ids
+K4_LONG_KS = (600, 2765, 3121)
+# K4's previous design (a thread walking its rows through dependent loads),
+# timed by its wrapper on an H100 80GB HBM3 at 700 W (PERF.md, section 6),
+# ms, k = 9
+K4_PREV_MS = {("128x1", 4096): 0.0661, ("512x3", 4096): 0.1023,
+             ("128x1", 524288): 2.8153, ("512x3", 524288): 10.9354}
+# K3's long windows: a table read from device memory (k >= 692), and
+# 32-bit row ids
+K3_LONG_KS, K3_LONG_ROWS = (692, 3121), (127, 4096)
 # training: automation_scripts/train_synth_mhc.py's task and heads
 MHC_N, MHC_SEED, MHC_EPOCHS, MHC_BATCH = 100_000, 3, 20, 4096
 TRAIN_HEADS = {"8x1": dict(hidden=8, depth=1),
@@ -500,9 +519,10 @@ def _bits_equal(a, b):
 
 
 def k3_shapes(card):
-    """K3 bit-equal to its plain version over K3_WIDTHS x K3_KS x K3_ROWS,
-    int32 and int64 positions, windows at odd byte offsets of a tape of
-    residues, 'X' and '.' (phase 3)."""
+    """K3 bit-equal to its plain version over K3_WIDTHS x K3_KS x K3_ROWS
+    and H 100/128 x K3_LONG_KS x K3_LONG_ROWS, int32 and int64 positions,
+    windows at odd byte offsets of a tape of residues, 'X' and '.' (phase
+    3)."""
     import numpy as np
     import torch
 
@@ -513,29 +533,33 @@ def k3_shapes(card):
     tape_len = 1 << 23
     tape = torch.from_numpy(
         alphabet[rng.integers(0, len(alphabet), tape_len)]).to(DEV)
+    shapes = [(h, k, K3_ROWS) for h in K3_WIDTHS for k in K3_KS]
+    shapes += [(h, k, K3_LONG_ROWS) for h in (100, 128) for k in K3_LONG_KS]
     n = 0
-    for h in K3_WIDTHS:
-        for k in K3_KS:
-            head = sc.ScoringHead.from_params(
-                sc.init_params(k, seed=h + k, hidden=h)).to(DEV)
-            for m in K3_ROWS:
-                odd = rng.integers(0, (tape_len - k) // 2, m) * 2 + 1
-                for dt in (torch.int32, torch.int64):
-                    pos = torch.from_numpy(odd).to(dt).to(DEV)
-                    got = sc.window_layer1(tape, pos, k, head.table, head.b1)
-                    want = sc.window_layer1_reference(tape, pos, k,
-                                                      head.table, head.b1)
-                    torch.cuda.synchronize()
-                    check(_bits_equal(got, want),
-                          f"K3 H={h} k={k} M={m} {dt} differs from its "
-                          f"plain version (max |d| "
-                          f"{float((got.float() - want.float()).abs().max())})")
-                    n += 1
-            del head, got, want
+    for h, k, rows in shapes:
+        head = sc.ScoringHead.from_params(
+            sc.init_params(k, seed=h + k, hidden=h)).to(DEV)
+        for m in rows:
+            odd = rng.integers(0, (tape_len - k) // 2, m) * 2 + 1
+            for dt in (torch.int32, torch.int64):
+                pos = torch.from_numpy(odd).to(dt).to(DEV)
+                before = sc.window_layer1.launches
+                got = sc.window_layer1(tape, pos, k, head.table, head.b1)
+                check(sc.window_layer1.launches == before + 1,
+                      f"K3 H={h} k={k} M={m} {dt}: K3 was not launched")
+                want = sc.window_layer1_reference(tape, pos, k, head.table,
+                                                  head.b1)
+                torch.cuda.synchronize()
+                check(_bits_equal(got, want),
+                      f"K3 H={h} k={k} M={m} {dt} differs from its plain "
+                      f"version (max |d| "
+                      f"{float((got.float() - want.float()).abs().max())})")
+                n += 1
+        del head, got, want
     torch.cuda.empty_cache()
     print(f"K3 vs plain on {card}: bit-equal at {n} shapes (H {K3_WIDTHS} x "
-          f"k {K3_KS} x M {K3_ROWS} x int32/int64 positions at odd byte "
-          f"offsets)")
+          f"k {K3_KS} x M {K3_ROWS}, and H 100/128 x k {K3_LONG_KS} x M "
+          f"{K3_LONG_ROWS}, x int32/int64 positions at odd byte offsets)")
 
 
 def phase_k3(card, blob, flat):
@@ -904,6 +928,47 @@ def _k4_yardstick(tape, pos, k, head, h1, g):
     return ms, dtable
 
 
+def _k4_launch_ms(tape, pos, k, h1, g):
+    """K4's two launches alone, back to back: its C entry point on output
+    and scratch allocated once (the wrapper allocates both on every call,
+    and at a training batch its host work outlasts the launches). Returns
+    their ms (CUDA events) and each pass's device ms a call
+    (``torch.profiler`` over BACK_TO_BACK calls; empty where it records no
+    device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
+
+    m, h_dim = h1.shape
+    tiles, _rows = sc._k4_tiles(m)
+    out = torch.empty((k * sc.VOCAB + 1, h_dim), dtype=torch.float32,
+                      device=h1.device)
+    partial = torch.empty(tiles * out.numel(), dtype=torch.float32,
+                          device=h1.device)
+    lib = load_kernels()
+    fn = lib.v2p_window_layer1_grad_i32 if pos.dtype == torch.int32 else (
+        lib.v2p_window_layer1_grad_i64)
+    args = (tape.data_ptr(), pos.data_ptr(), m, k, h1.data_ptr(),
+            g.data_ptr(), h_dim, tiles, partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    ms, _ = _cuda_ms(lambda: check_launch(fn(*args), "K4"),
+                     inner=BACK_TO_BACK)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(BACK_TO_BACK):
+            check_launch(fn(*args), "K4")
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        for name, key in (("pass 1", "grad_partial"), ("pass 2",
+                                                      "grad_reduce")):
+            total = getattr(ev, "device_time_total", 0)
+            if key in ev.key and total:
+                passes[name] = total / 1e3 / BACK_TO_BACK
+    return ms, passes
+
+
 def phase_k4(card):
     """K4 against its plain version on the card; returns its numbers by
     (head, rows) at k = 9 with int64 positions."""
@@ -922,13 +987,20 @@ def phase_k4(card):
     cases = [(h, k, dt, K4_ROWS[0]) for h in HEADS for k in (8, 9, 11, 30)
              for dt in dtypes]
     cases += [(h, 9, dt, K4_ROWS[1]) for h in HEADS for dt in dtypes]
-    cases.append(("128x1", 600, torch.int64, K4_ROWS[0]))
+    # a split of the positions over the grid; then k past the old caps
+    # (2,764) and past 16-bit global row ids (k * 21 > 65,535)
+    cases += [("128x1", k, torch.int64, K4_ROWS[0]) for k in K4_LONG_KS]
+    # widths that stage h1 and g (H % 8 != 0) and store the partials (H % 4
+    # != 0) element by element
+    odd = {f"{h}x1": dict(hidden=h, depth=1) for h in (100, 6)}
+    heads = dict(HEADS, **odd)
+    cases += [(name, 11, dt, K4_ROWS[0]) for name in odd for dt in dtypes]
     measured = {}
     worst = 0.0
     for name, k, dt, m in cases:
         what = f"K4 {name} k={k} {str(dt)[6:]} M={m}"
         head = sc.ScoringHead.from_params(
-            init_params(k, seed=k, **HEADS[name])).to(DEV)
+            init_params(k, seed=k, **heads[name])).to(DEV)
         # windows at odd byte offsets of the tape
         pos = torch.from_numpy(
             rng.integers(0, (tape_len - k) // 2, m) * 2 + 1).to(dt).to(DEV)
@@ -937,13 +1009,20 @@ def phase_k4(card):
         gen.manual_seed(k * 1000 + m)
         g = torch.randn(h1.shape, generator=gen,
                         device=DEV).to(torch.bfloat16)
+        before = sc.window_layer1_backward.launches
         got = sc.window_layer1_backward(tape, pos, k, h1, g)
         again = sc.window_layer1_backward(tape, pos, k, h1, g)
+        check(sc.window_layer1_backward.launches == before + 2,
+              f"{what}: K4 was not launched")
+        tiled = sc.window_layer1_backward_tiled_reference(tape, pos, k, h1, g)
         want = sc.window_layer1_backward_reference(tape, pos, k, h1, g)
         torch.cuda.synchronize()
         err = 0.0
-        for a, b, c in zip(got, again, want):
+        for a, b, t, c in zip(got, again, tiled, want):
             check(torch.equal(a, b), f"{what}: two launches differ")
+            check(torch.equal(a, t), f"{what}: differs from the plain "
+                  f"version in K4's order (max |d| "
+                  f"{float((a - t).abs().max())})")
             check(bool(torch.isfinite(a).all()), f"{what}: not finite")
             bad = (a - c).abs() > 1e-4 * c.abs() + 1e-5 * float(c.abs().max())
             err = max(err, float((a - c).abs().max()))
@@ -951,10 +1030,12 @@ def phase_k4(card):
                                        f"version (max |d| {err})")
         worst = max(worst, err)
         if k == 9 and dt == torch.int64:
-            # the launches alone, as autograd makes them (the forward
-            # checked the windows' bounds)
-            ms, _ = _cuda_ms(lambda: sc._layer1_backward(tape, pos, k, h1, g),
-                             inner=BACK_TO_BACK)
+            ms, passes = _k4_launch_ms(tape, pos, k, h1, g)
+            # the wrapper as autograd calls it (the forward checked the
+            # windows' bounds), as the previous kernel was timed
+            wrapper, _ = _cuda_ms(
+                lambda: sc._layer1_backward(tape, pos, k, h1, g),
+                inner=BACK_TO_BACK)
             plain, _ = _cuda_ms(lambda: sc.window_layer1_backward_reference(
                 tape, pos, k, h1, g), inner=BACK_TO_BACK)
             library, lib_d = _k4_yardstick(tape, pos, k, head, h1, g)
@@ -965,17 +1046,36 @@ def phase_k4(card):
             bound, by = _bound(n_bytes, m * k * h_dim)
             measured[(name, m)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                        bound_ms=bound, bound_by=by,
-                                       library_ms=library)
-            print(f"{what} on {card}: max |d| {err}; {ms:.4f} ms "
+                                       library_ms=library, wrapper_ms=wrapper)
+            print(f"{what} on {card}: max |d| {err}; launches {ms:.4f} ms "
                   f"({4 * h1.numel() / ms / 1e6:.1f} GB/s of h1 and g; "
                   f"{100 * bound / ms:.1f}% of the {bound:.4f} ms bound by "
-                  f"{by}), plain {plain:.4f} ms, yardstick autograd.grad of "
+                  f"{by}; by torch.profiler "
+                  + (", ".join(f"{n} {v:.4f} ms" for n, v in passes.items())
+                     or "not measured")
+                  + f"), wrapper {wrapper:.4f} ms (the previous "
+                  f"kernel {K4_PREV_MS[(name, m)]} ms, so timed), plain "
+                  f"{plain:.4f} ms, yardstick autograd.grad of "
                   f"F.embedding_bag {library:.4f} ms (its dtable within "
                   f"{lib_err} of the plain version's)")
-        del h1, g, got, again, want
+        del h1, g, got, again, tiled, want
     torch.cuda.empty_cache()
-    print(f"K4 vs plain: {len(cases)} cases within rtol 1e-4 + atol 1e-5 * "
-          f"max|ref| (max |d| {worst}), two launches bit-equal in each")
+    print(f"K4 vs plain: {len(cases)} cases bit-equal to the plain version "
+          f"in K4's order and within rtol 1e-4 + atol 1e-5 * max|ref| of the "
+          f"index_add_ one (max |d| {worst}), two launches bit-equal in each")
+    print("K4 at k = 9, int64 (launches / bound / share of bound / wrapper "
+          "/ yardstick / the previous kernel by its wrapper, ms): "
+          + "; ".join(
+              f"{n} x {m}: {v['ms']:.4f} / {v['bound_ms']:.4f} / "
+              f"{100 * v['bound_ms'] / v['ms']:.1f}% / "
+              f"{v['wrapper_ms']:.4f} / {v['library_ms']:.4f} / "
+              f"{K4_PREV_MS[(n, m)]}"
+              for (n, m), v in measured.items()))
+    for key, v in measured.items():
+        check(max(v["ms"], v["wrapper_ms"]) <= v["library_ms"],
+              f"K4 {key} {v['ms']:.4f} ms ({v['wrapper_ms']:.4f} ms by its "
+              f"wrapper) is slower than its yardstick {v['library_ms']:.4f} "
+              f"ms")
     return measured
 
 

@@ -188,6 +188,25 @@ def test_score_windows_matches_jax(hidden, depth, k):
     assert np.abs(got.numpy() - want).max() <= SCORE_TOL
 
 
+@pytest.mark.parametrize("k", [692, 2765])
+def test_score_windows_of_long_windows_matches_jax(k):
+    """Any k: past the table K3 can stage in shared memory (k >= 692) and
+    past the gradient's old cap (k > 2,764), the port's scorer gives the
+    reference's scores, as the reference takes any k."""
+    params = jax_scoring.init_params(k, hidden=8, seed=k)
+    windows = random_windows(k, 64, k)
+    want = np.asarray(jax_scoring.score_windows(windows, params))
+    got = score_windows(windows, ScoringHead.from_params(params))
+    assert got.shape == (64,) and bool(torch.isfinite(got).all())
+    assert np.abs(got.numpy() - want).max() <= SCORE_TOL
+
+
+def test_scoring_caps_no_window_length():
+    """No k cap is left for K3 or K4 to refuse a CUDA tensor by."""
+    assert not hasattr(scoring, "MAX_K3_K")
+    assert not hasattr(scoring, "MAX_K4_K")
+
+
 def test_head_from_load_params_npz(tmp_path):
     """``from_params`` carries a ``load_params`` .npz across: the same
     buffers and scores as the in-memory weights it was saved from."""

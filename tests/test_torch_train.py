@@ -43,6 +43,7 @@ from vcf2prot_tpu_torch.downstream.scoring import (
     score_windows,
     window_layer1_backward,
     window_layer1_backward_reference,
+    window_layer1_backward_tiled_reference,
     window_layer1_reference,
 )
 from vcf2prot_tpu_torch.downstream.train import auc, fit, save_params
@@ -279,15 +280,9 @@ def layer1_case(k, hidden, seed, m=700, pos_dtype=np.int64):
     return buf, pos, head.table, b1, h1, g.to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("pos_dtype", [np.int32, np.int64])
-@pytest.mark.parametrize("k,hidden", [(8, 96), (9, 128), (11, 512)])
-def test_layer1_backward_reference_matches_dense_autograd(k, hidden,
-                                                          pos_dtype):
-    buf, pos, table, b1, h1, g = layer1_case(k, hidden, k, pos_dtype=pos_dtype)
-    dtable, db1 = window_layer1_backward_reference(buf, pos, k, h1, g)
-    assert dtable.dtype == db1.dtype == torch.float32
-    assert dtable.shape == (k * 21, hidden) and db1.shape == (hidden,)
-
+def dense_layer1_grads(buf, pos, k, table, b1, g):
+    """``(dtable, db1)`` of layer 1 by float64 autograd through the one-hot
+    product and ReLU, as numpy arrays."""
     lut = jax_peptides._alphabet_lut()
     ids = lut[buf.numpy()[pos.numpy()[:, None] + np.arange(k)]]
     onehot = np.zeros((pos.numel(), k * 21))
@@ -296,10 +291,128 @@ def test_layer1_backward_reference_matches_dense_autograd(k, hidden,
     b64 = b1.double().requires_grad_()
     pre = torch.from_numpy(onehot) @ t64 + b64
     torch.relu(pre).backward(g.double())
-    for got, want in ((dtable, t64.grad), (db1, b64.grad)):
-        want = want.numpy()
+    return t64.grad.numpy(), b64.grad.numpy()
+
+
+@pytest.mark.parametrize("pos_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("k,hidden", [(8, 96), (9, 128), (11, 512)])
+def test_layer1_backward_reference_matches_dense_autograd(k, hidden,
+                                                          pos_dtype):
+    buf, pos, table, b1, h1, g = layer1_case(k, hidden, k, pos_dtype=pos_dtype)
+    dtable, db1 = window_layer1_backward_reference(buf, pos, k, h1, g)
+    assert dtable.dtype == db1.dtype == torch.float32
+    assert dtable.shape == (k * 21, hidden) and db1.shape == (hidden,)
+    for got, want in zip((dtable, db1),
+                         dense_layer1_grads(buf, pos, k, table, b1, g)):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max())
+
+
+# K4's row partition (tiles, rows a tile) at row counts that reach one
+# tile, a full tile, several, a short last tile (4,097: 65 tiles of 64
+# rows) and the 512-tile cap (40,000: tiles of 79 rows, the last empty)
+K4_TILES = {1: (1, 1), 63: (1, 63), 64: (1, 64), 700: (11, 64),
+            4097: (65, 64), 40000: (512, 79)}
+
+
+@pytest.mark.parametrize("m", sorted(K4_TILES))
+def test_k4_tiles_are_pinned(m):
+    """K4's summation order, and so every weight a fit on the card trains,
+    is a function of M alone through this partition."""
+    assert scoring._k4_tiles(m) == K4_TILES[m]
+
+
+@pytest.mark.parametrize("pos_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("m", sorted(K4_TILES))
+def test_layer1_backward_tiled_reference_matches_dense_autograd(m,
+                                                                pos_dtype):
+    """K4's order gives the same gradient as one index_add_ per position
+    and as float64 autograd, within the same tolerance."""
+    k, hidden = 9, 32
+    buf, pos, table, b1, h1, g = layer1_case(k, hidden, m % 997, m=m,
+                                             pos_dtype=pos_dtype)
+    got = window_layer1_backward_tiled_reference(buf, pos, k, h1, g)
+    plain = window_layer1_backward_reference(buf, pos, k, h1, g)
+    dense = dense_layer1_grads(buf, pos, k, table, b1, g)
+    assert [t.shape for t in got] == [(k * 21, hidden), (hidden,)]
+    for a, p, d in zip(got, plain, dense):
+        assert a.dtype == torch.float32
+        for want in (p.double().numpy(), d):
+            np.testing.assert_allclose(a.numpy(), want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m", [63, 700, 4097])
+def test_layer1_backward_tiled_reference_sums_in_k4_order(m):
+    """Bit for bit the loop K4 runs: each tile's entries summed over its
+    rows in row order from +0.0, then the tiles' partials in tile order."""
+    k, hidden = 3, 8
+    buf, pos, _t, _b, h1, g = layer1_case(k, hidden, m, m=m)
+    rows = scoring._window_rows(buf, pos, k)
+    gm = torch.where(h1 > 0, g.float(), 0.0)
+    tiles, per = scoring._k4_tiles(m)
+    want = torch.zeros((k * 21 + 1, hidden))
+    for t in range(tiles):
+        part = torch.zeros_like(want)
+        for r in range(t * per, min((t + 1) * per, m)):
+            for i in range(k):
+                part[rows[r, i]] += gm[r]
+            part[-1] += gm[r]
+        want += part
+    dtable, db1 = window_layer1_backward_tiled_reference(buf, pos, k, h1, g)
+    assert torch.equal(dtable, want[:-1]) and torch.equal(db1, want[-1])
+
+
+def test_layer1_backward_tiled_reference_mask_is_relu_gradient():
+    """In K4's order too, rows whose h1 is 0 contribute nothing, NaN
+    gradients included (a short last tile padded with zero rows)."""
+    buf, pos, _t, _b, h1, g = layer1_case(9, 64, 3, m=4097)
+    off = h1 <= 0
+    assert off.any() and (~off).any()
+    g_nan = g.clone()
+    g_nan[off] = float("nan")
+    a, b, c = (window_layer1_backward_tiled_reference(buf, pos, 9, h1, x)
+               for x in (g, torch.where(off, 0, g), g_nan))
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+        assert bool(torch.isfinite(x).all())
+
+
+@pytest.mark.parametrize("k", [692, 2765])
+def test_long_window_gradients_match_jax(k):
+    """Any k: past K3's and K4's old caps (k > 691, k > 2,764), the port's
+    scores and gradients are the reference's, as the reference takes any
+    k."""
+    rng = np.random.default_rng(k)
+    n = 64
+    win = BYTES[rng.integers(0, 20, (n, k))]
+    y = (rng.random(n) < 0.3).astype(np.float32)
+    m = np.ones(n, np.float32)
+    params = init_params(k, seed=k, hidden=8)
+    want = jax.grad(jax_batch_loss)(
+        {key: jnp.asarray(v) for key, v in params.items()}, win, y, m
+    )
+    model = TrainableHead.from_params(params)
+    scores = model(torch.from_numpy(win))
+    np.testing.assert_allclose(
+        scores.detach().numpy(),
+        np.asarray(jax_scoring.score_windows(win, params)), rtol=0,
+        atol=2e-3)
+    train.batch_loss(scores, torch.from_numpy(y), torch.from_numpy(m),
+                     True).backward()
+    for name, p in model.named_parameters():
+        g = np.asarray(want[name])
+        err = np.abs(p.grad.numpy() - g).max()
+        assert err <= GRAD_TOL["128x1"] * np.abs(g).max(), (name, err)
+
+
+def test_k4_ab_without_sources_prints_its_usage(capsys):
+    """The K4 A/B script exits 2 with its usage, and builds nothing, when
+    it is given no source to compare."""
+    from vcf2prot_tpu_torch.utils import k4_ab
+
+    assert k4_ab.main([]) == 2
+    assert "v2p_window_layer1_grad_i64" in capsys.readouterr().err
 
 
 def test_layer1_backward_mask_is_relu_gradient():

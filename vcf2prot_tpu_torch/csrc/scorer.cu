@@ -52,6 +52,9 @@
 //    or one mask;
 //  * a scalar tail for H % 8 != 0 or a misaligned table or output: staged
 //    element by element, stored element by element;
+//  * a table whose 8-column slice does not fit a block's shared memory
+//    (k >= 692) is read from device memory instead
+//    (window_layer1_global_kernel), in the same order: K3 takes any k;
 //  * windows are read at arbitrary byte offsets: the chain passes the
 //    device tape and the candidate positions, score_cohort a flat [M*k]
 //    buffer with pos = m*k. The caller checks 0 <= pos, pos + k <= len.
@@ -316,6 +319,100 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// K3 for a table too long for shared memory (k*21 rows of 8 bf16 columns
+// above 227 KB: k >= 692). A thread owns 8 columns of one window and reads
+// the k table rows it selects straight from device memory (16-byte __ldg;
+// the table is L2-resident: 3.7 MB at k = 692 x 128 columns), summed in the
+// same i order as window_layer1_kernel, so it is bit-equal to it and to
+// the plain version. Row offsets are 64-bit, so k has no bound here.
+template <typename Idx>
+__global__ void __launch_bounds__(kThreads)
+    window_layer1_global_kernel(const uint8_t* __restrict__ buf,
+                                const Idx* __restrict__ pos, int64_t m,
+                                int k, const __nv_bfloat16* __restrict__ table,
+                                const float* __restrict__ b1, int h_dim,
+                                __nv_bfloat16* __restrict__ out,
+                                bool vec_table, bool vec_out) {
+  __shared__ uint8_t lut[256];
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) lut[c] = kVocab - 1;
+  __syncthreads();
+  if (threadIdx.x < kVocab - 1) {
+    const char alphabet[] = "ACDEFGHIKLMNPQRSTVWY";
+    lut[static_cast<uint8_t>(alphabet[threadIdx.x])] =
+        static_cast<uint8_t>(threadIdx.x);
+  }
+  __syncthreads();
+  const int vecs = (h_dim + 7) / 8;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= m * vecs) return;
+  const int64_t row = t / vecs;
+  const int col = static_cast<int>(t - row * vecs) * 8;
+  const uint8_t* win = buf + static_cast<int64_t>(pos[row]);
+  float acc[8];
+  for (int i = 0; i < k; ++i) {
+    const __nv_bfloat16* src =
+        table + (static_cast<int64_t>(i) * kVocab + lut[win[i]]) * h_dim +
+        col;
+    if (vec_table) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+      if (i == 0) {
+        sum_row<true>(acc, v);
+      } else {
+        sum_row<false>(acc, v);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float f = col + j < h_dim ? __bfloat162float(src[j]) : 0.0f;
+        acc[j] = i == 0 ? f : acc[j] + f;
+      }
+    }
+  }
+  uint4 packed;
+  __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float v[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = col + 2 * j + u;
+      const float s = acc[2 * j + u] + (c < h_dim ? b1[c] : 0.0f);
+      v[u] = s < 0.0f ? 0.0f : s;  // NaN propagates, as torch.relu's
+    }
+    pair[j] = __floats2bfloat162_rn(v[0], v[1]);
+  }
+  __nv_bfloat16* dst = out + row * h_dim + col;
+  if (vec_out) {
+    __stcs(reinterpret_cast<uint4*>(dst), packed);
+  } else {
+    const __nv_bfloat16* o = reinterpret_cast<const __nv_bfloat16*>(&packed);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (col + j < h_dim) dst[j] = o[j];
+    }
+  }
+}
+
+template <typename Idx>
+int launch_global(const void* buf, const void* pos, int64_t m, int64_t k,
+                  const void* table, const void* b1, int64_t h_dim,
+                  void* out, void* stream) {
+  const int64_t threads = m * ((h_dim + 7) / 8);
+  const bool vec_table = h_dim % 8 == 0 &&
+                         reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  const bool vec_out = h_dim % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  window_layer1_global_kernel<Idx><<<
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads,
+      0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(buf), static_cast<const Idx*>(pos), m,
+      static_cast<int>(k), static_cast<const __nv_bfloat16*>(table),
+      static_cast<const float*>(b1), static_cast<int>(h_dim),
+      static_cast<__nv_bfloat16*>(out), vec_table, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Plan plan(int k, int64_t h_dim) {
   Plan p{};
   const int64_t n_rows = static_cast<int64_t>(k) * kVocab;
@@ -379,11 +476,13 @@ template <typename Idx, int K>
 int launch_k(const void* buf, const void* pos, int64_t m, int64_t k,
              const void* table, const void* b1, int64_t h_dim, void* out,
              void* stream) {
-  if (k <= 0 || k > kMaxSmem / (kVocab * 16)) {
+  if (k <= 0 || k > (1 << 30) || h_dim > (1 << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan p = plan(static_cast<int>(k), h_dim);
-  if (p.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.smem > kMaxSmem) {
+    return launch_global<Idx>(buf, pos, m, k, table, b1, h_dim, out, stream);
+  }
   int sms = 0;
   int per_sm = 0;
   const cudaError_t err = device_setup<Idx, K>(p.smem, &sms, &per_sm);

@@ -42,14 +42,17 @@ from .peptides import (
 )
 
 _LUT = torch.from_numpy(_alphabet_lut()).long()
-# K3 stages an 8-column slice of the k*21-row bf16 table in shared memory
-# at the least (k*21*16 bytes, at most 227 KB a block)
-MAX_K3_K = (227 * 1024) // (VOCAB * 16)
-# K4 sums one column of a [k*21 + 1]-row fp32 table in shared memory at the
-# least; rows are cut into tiles of K4_TILE_ROWS, at most K4_MAX_TILES of
-# them (each tile's partial table is [k*21 + 1, H] fp32 of scratch)
-MAX_K4_K = ((227 * 1024 - 256) // 4 - 1) // VOCAB
+# K4 cuts the rows into tiles of K4_TILE_ROWS, at most K4_MAX_TILES of them
+# (each tile's partial table is [k*21 + 1, H] fp32 of scratch)
 K4_TILE_ROWS, K4_MAX_TILES = 64, 512
+
+
+def _k4_tiles(m: int) -> tuple:
+    """``(tiles, rows a tile)`` of K4's partition of ``m`` rows: a function
+    of ``m`` alone, so is K4's summation order. Tile ``t`` holds rows
+    ``[t * rows, min((t + 1) * rows, m))``; the last tiles may be empty."""
+    tiles = min(-(-m // K4_TILE_ROWS), K4_MAX_TILES)
+    return tiles, -(-m // tiles)
 
 
 def init_params(k: int = 9, embed_dim: int = 32, hidden=128,
@@ -224,8 +227,6 @@ def _launch_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
         return window_layer1_reference(buf, pos, k, table, b1)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
-    if k > MAX_K3_K:
-        raise ValueError(f"K3 takes k <= {MAX_K3_K}, got {k}")
     m, h_dim = pos.numel(), table.shape[1]
     out = torch.empty((m, h_dim), dtype=torch.bfloat16, device=buf.device)
     if m == 0 or h_dim == 0:
@@ -276,6 +277,47 @@ def window_layer1_backward_reference(buf, pos, k: int, h1, g):
     return dtable, gm.sum(0)
 
 
+def window_layer1_backward_tiled_reference(buf, pos, k: int, h1, g):
+    """:func:`window_layer1_backward_reference` in K4's own summation
+    order, which K4 equals bit for bit: the rows cut into
+    :func:`_k4_tiles`, each entry of ``[dtable; db1]`` summed over its
+    tile's rows in row order from +0.0, then the tiles' partials summed in
+    tile order. Step ``j`` adds row ``j`` of every tile into that tile's
+    partial at once: within a step, tiles and positions touch distinct
+    entries, so each entry takes exactly one fp32 add. The last tile is
+    padded with zero rows (adding +0.0 to a sum that started at +0.0
+    changes no bit)."""
+    m, h_dim = h1.shape
+    n_rows = k * VOCAB + 1  # dtable's rows, then db1
+    if m == 0:
+        out = torch.zeros((n_rows, h_dim), dtype=torch.float32,
+                          device=buf.device)
+        return out[:-1], out[-1]
+    tiles, tile_rows = _k4_tiles(m)
+    pad = tiles * tile_rows
+    gm = torch.zeros((pad, h_dim), dtype=torch.float32, device=buf.device)
+    gm[:m] = torch.where(h1 > 0, g.float(), 0.0)
+    # [pad, k + 1] rows of each tile's partial: a window's k rows, then db1
+    rows = torch.full((pad, k + 1), n_rows - 1, dtype=torch.int64,
+                      device=buf.device)
+    rows[:m, :k] = _window_rows(buf, pos, k)
+    tile_of = torch.arange(pad, device=buf.device) // tile_rows
+    rows += tile_of[:, None] * n_rows
+    gm = gm.view(tiles, tile_rows, h_dim)
+    rows = rows.view(tiles, tile_rows, k + 1)
+    partial = torch.zeros((tiles * n_rows, h_dim), dtype=torch.float32,
+                          device=buf.device)
+    for j in range(tile_rows):
+        idx = rows[:, j].reshape(-1)
+        src = gm[:, j, None].expand(tiles, k + 1, h_dim).reshape(-1, h_dim)
+        partial[idx] = partial[idx] + src
+    partial = partial.view(tiles, n_rows, h_dim)
+    out = torch.zeros((n_rows, h_dim), dtype=torch.float32, device=buf.device)
+    for t in range(tiles):
+        out = out + partial[t]
+    return out[:-1], out[-1]
+
+
 def window_layer1_backward(buf, pos, k: int, h1, g):
     """Gradient of :func:`window_layer1`: ``(dtable fp32 [k*21, H], db1 fp32
     [H])`` of the windows ``buf[pos[m] : pos[m] + k]``, their first-layer
@@ -293,8 +335,6 @@ def _layer1_backward(buf, pos, k: int, h1, g):
         return window_layer1_backward_reference(buf, pos, k, h1, g)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
-    if k > MAX_K4_K:
-        raise ValueError(f"K4 takes k <= {MAX_K4_K}, got {k}")
     m, h_dim = h1.shape
     # dtable's rows, then db1: one buffer, two views
     out = torch.empty((k * VOCAB + 1, h_dim), dtype=torch.float32,
@@ -303,7 +343,7 @@ def _layer1_backward(buf, pos, k: int, h1, g):
         out.zero_()
         return out[:-1], out[-1]
     # the tiles are a function of M alone, so is the summation order
-    tiles = min(-(-m // K4_TILE_ROWS), K4_MAX_TILES)
+    tiles, _rows = _k4_tiles(m)
     partial = torch.empty(tiles * out.numel(), dtype=torch.float32,
                           device=buf.device)
     lib = load_kernels()
