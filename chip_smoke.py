@@ -11,10 +11,16 @@ failing the run with a non-zero exit:
 2. build: K1 (executor), K2 (validator), K3 (window scorer) and K4 (its
    gradient) through ``runtime/build.py``, one nvcc per source, all
    started together;
-3. kernel vs plain twin on the card: K1 byte-equal on int32 / int64 /
-   empty / edge-case packs, K2 count-equal on valid and corrupted packs,
-   and both timed on one full 256 MiB chunk (CUDA events) beside their
-   bounds; K3 bit-equal to its plain version (the same fp32 sums in the
+3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
+   the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
+   and int64, with combined aligned and at an odd address; K2 count-equal
+   on valid and corrupted packs (corruptions where its lanes hand over the
+   next dst among them), int32 and int64, the arrays aligned, one element
+   past alignment and at differing alignments; each timed by its C entry
+   point's launches alone on an output or count allocated once, by its
+   wrapper and by its plain version, K1 on the first 256 MiB and 128 MiB
+   chunks beside a device-to-device ``copy_`` of the tape (its practical
+   floor), K2 on the first 256 MiB chunk, beside their bounds; K3 bit-equal to its plain version (the same fp32 sums in the
    same order) over H 8/100/128/512 x k 8/9/11/30 x M 1/127/4,096/524,287
    and H 100/128 x k 692/3,121 (its table read from device memory) x M
    127/4,096, x int32/int64 positions at odd byte offsets, and on the
@@ -90,9 +96,11 @@ multi-node runs stay unverified.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON summary (launches summed
-over the paths; each kernel's bound from the H100 SXM's published 3.35
-TB/s and 67 TFLOP/s of fp32, and its yardstick's time as ``library_ms``
-and ``one_call_ms``, null where no one call computes the same); the last
+over the paths; ``ms`` each kernel's launches alone and ``wrapper_ms`` its
+wrapper's, back to back; each kernel's bound from the H100 SXM's published
+3.35 TB/s and 67 TFLOP/s of fp32, and its yardstick's time as
+``library_ms`` and ``one_call_ms``, null where no one call computes the
+same); the last
 line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
 package ``vcf2prot_tpu``.
 """
@@ -233,15 +241,16 @@ def phase_build():
             print(f"  ptxas: {ln.strip()}")
 
 
-def _genvcf():
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    import genvcf
+def _tests_module(name):
+    """A data generator of tests/ (plain numpy, no JAX)."""
+    import importlib
 
-    return genvcf
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    return importlib.import_module(name)
 
 
 def write_cohort(workdir, gen, n_samples, n_transcripts, seed):
-    genvcf = _genvcf()
+    genvcf = _tests_module("genvcf")
     t0 = time.perf_counter()
     ref, samples = getattr(genvcf, gen)(
         seed=seed, n_samples=n_samples, n_transcripts=n_transcripts
@@ -301,13 +310,17 @@ def _covered_bytes(pos, k):
 
 
 def _edge_packs():
-    """Executor edge cases of tests/test_executor_edges.py, packed."""
+    """K1's edge packs, name -> (pack, blob): the executor edge cases of
+    tests/test_executor_edges.py and the output-tile edges of
+    tests/k1_edges.py (a task over 128 tiles, tile boundaries inside a task,
+    at a task start and on runs of zero-length tasks sharing it, source
+    offsets at every residue mod 16, spans at both ends of combined, and
+    total_res 1, 15, 16, 17 and one tile +- 1)."""
     import numpy as np
 
     from vcf2prot_tpu_torch.compiler.haplotype import HaplotypeProgram, RefBlob
+    from vcf2prot_tpu_torch.runtime.gpu_engine import K1_TILE_BYTES
     from vcf2prot_tpu_torch.runtime.pack import pack_cohort
-
-    blob = RefBlob.from_ref_seqs({"T": "ABCDEFGHIJKLMNOP"})
 
     def mk(tasks, alt, res_len):
         cols = list(zip(*tasks)) if tasks else [(), (), (), ()]
@@ -317,17 +330,23 @@ def _edge_packs():
             alt, res_len, [],
         )
 
+    small = RefBlob.from_ref_seqs({"T": "ABCDEFGHIJKLMNOP"})
     interleaved = [(0, 0, 0, 0), (1, 0, 2, 0), (0, 2, 3, 2), (1, 2, 0, 5)]
     interleaved += [(i % 2, i, 1, 5 + i) for i in range(8)]
     progs = {
-        "empty": mk([], b"", 0),
-        "zero_len_and_single_bytes": mk(interleaved, b"xyzzzzzzzz", 13),
+        "empty": (mk([], b"", 0), small),
+        "zero_len_and_single_bytes": (mk(interleaved, b"xyzzzzzzzz", 13),
+                                      small),
         # the last task's span ends at the last byte of combined
-        "span_to_last_byte": mk(
-            [(0, 14, 2, 0), (1, 0, 8, 2), (1, 8, 2, 10)], b"0123456789", 12
-        ),
+        "span_to_last_byte": (mk([(0, 14, 2, 0), (1, 0, 8, 2),
+                                  (1, 8, 2, 10)], b"0123456789", 12), small),
     }
-    return blob, {k: pack_cohort([p], blob) for k, p in progs.items()}
+    edges = _tests_module("k1_edges")
+    big = RefBlob.from_ref_seqs({"T": edges.blob_seq()})
+    for name, (tasks, alt, res_len) in edges.tile_edge_cases(
+            K1_TILE_BYTES).items():
+        progs[name] = (mk(tasks, alt, res_len), big)
+    return {k: (pack_cohort([p], b), b) for k, (p, b) in progs.items()}
 
 
 def _device_pack(packed, blob, dtype=None):
@@ -341,6 +360,17 @@ def _device_pack(packed, blob, dtype=None):
     combined = np.concatenate([blob.data, np.asarray(packed.alt, np.uint8)])
     return (to_device(combined, "cuda"), to_device(dst, "cuda"),
             to_device(srcb, "cuda"))
+
+
+def _shifted(t, elements):
+    """A copy of ``t`` in a view that starts ``elements`` elements past the
+    start of its buffer (at an odd byte address for a u8 tensor and 1)."""
+    import torch
+
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = buf[elements:]
+    view.copy_(t)
+    return view
 
 
 def _k1_err(combined, dst, srcb, total):
@@ -370,6 +400,28 @@ def _k2_pair(dst, length, srcb, combined_len, res_len):
             validate_reference(dst, length, srcb, combined_len, res_len))
 
 
+def _entry(kernel, idx):
+    """The C entry point ``v2p_<kernel>_i32`` or ``_i64`` for the index
+    tensor ``idx``."""
+    from vcf2prot_tpu_torch.runtime.build import load_kernels
+
+    return getattr(load_kernels(), f"v2p_{kernel}_i{8 * idx.element_size()}")
+
+
+def _launch_ms(entry, args, what):
+    """A C entry point's launches alone, BACK_TO_BACK of them between two
+    CUDA events (median of 10), on buffers the caller allocated once
+    (``args`` without the stream)."""
+    import torch
+
+    from vcf2prot_tpu_torch.runtime.build import check_launch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    ms, _ = _cuda_ms(lambda: check_launch(entry(*args, stream), what),
+                     inner=BACK_TO_BACK)
+    return ms
+
+
 def compile_main(big_vcf, big_fa):
     """The main cohort's proteome blob and haplotype programs (native)."""
     from vcf2prot_tpu_torch.compiler.haplotype import RefBlob
@@ -388,8 +440,98 @@ def compile_main(big_vcf, big_fa):
     return blob, flat
 
 
+def k1_k2_checks(blob, flat):
+    """K1 byte-equal to its plain version on every pack, int32 and int64,
+    with combined aligned and at an odd address; K2's count equal to its
+    plain version's on a valid pack and corrupted copies, int32 and int64,
+    with the three arrays aligned, one element past alignment and at
+    differing alignments (phase 3). Returns the largest differences."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.pipeline import _chunk_indices
+    from vcf2prot_tpu_torch.runtime.gpu_engine import to_device
+    from vcf2prot_tpu_torch.runtime.pack import pack_cohort
+
+    chunks = _chunk_indices(flat, CHUNK_BYTES, pair_aligned=True)
+    small = pack_cohort([flat[i] for i in chunks[0][:64]], blob)
+    cases = {"cohort": (small, blob)}
+    cases.update(_edge_packs())
+    k1_err = k2_err = 0
+    for name, (packed, b) in cases.items():
+        for dtype in (np.int32, np.int64):
+            combined, dst, srcb = _device_pack(packed, b, dtype)
+            for odd in (False, True):
+                comb = _shifted(combined, 1) if odd else combined
+                err = _k1_err(comb, dst, srcb, packed.total_res)
+                check(err == 0, f"K1 differs from its plain version on "
+                                f"{name} ({dtype.__name__}, combined at "
+                                f"{comb.data_ptr() % 16} mod 16; max {err})")
+                k1_err = max(k1_err, err)
+    torch.cuda.empty_cache()
+    print(f"K1 vs plain: byte-equal on {len(cases)} packs ({', '.join(cases)})"
+          f" x int32/int64 x combined at an aligned and an odd address")
+
+    combined_len = len(blob.data) + len(small.alt)
+    lengths = np.diff(np.append(small.dst, small.total_res)).astype(np.int32)
+    rng = np.random.default_rng(7)
+    corrupt = {"valid": (small.dst, small.src_biased)}
+    d = small.dst.copy()
+    d[len(d) // 2] += 3
+    corrupt["dst_mid_plus_3"] = (d, small.src_biased)
+    s = small.src_biased.copy()
+    s[0] = combined_len + 100
+    corrupt["srcb0_past_end"] = (small.dst, s)
+    d = small.dst.copy()
+    d[-1] = small.total_res + 5
+    corrupt["dst_last_past_res"] = (d, small.src_biased)
+    # where a group of 4 tasks takes its neighbour's dst from the next lane
+    # (3, 4), from the next set of 32 groups (127, 128), by a load (255,
+    # 256), and the last task
+    for i in (3, 4, 127, 128, 255, 256, len(small.dst) - 1):
+        d = small.dst.copy()
+        d[i] += 3
+        corrupt[f"dst_{i}_plus_3"] = (d, small.src_biased)
+    for r in range(20):
+        d, s = small.dst.copy(), small.src_biased.copy()
+        i = int(rng.integers(len(d)))
+        if rng.random() < 0.5:
+            d[i] += int(rng.integers(-50, 50))
+        else:
+            s[i] += int(rng.integers(-combined_len, combined_len))
+        corrupt[f"random_{r}"] = (d, s)
+    # aligned; each array one element past its buffer's start; the three
+    # at different offsets (every task scalar)
+    layouts = {"aligned": (0, 0, 0), "offset_1": (1, 1, 1),
+               "mixed": (1, 2, 3)}
+    for name, (d, s) in corrupt.items():
+        for dtype in (np.int32, np.int64):
+            arrays = [to_device(a.astype(dtype), "cuda")
+                      for a in (d, lengths, s)]
+            for layout, shifts in layouts.items():
+                got, want = _k2_pair(
+                    *(_shifted(a, k) if k else a
+                      for a, k in zip(arrays, shifts)),
+                    combined_len, small.total_res,
+                )
+                check(got == want, f"K2 count {got} != plain {want} on "
+                                   f"{name} ({dtype.__name__}, {layout})")
+                if not name.startswith("random"):
+                    check((want == 0) == (name == "valid"),
+                          f"K2 plain count {want} is wrong on {name}")
+                k2_err = max(k2_err, abs(got - want))
+    print(f"K2 vs plain: equal counts on {len(corrupt)} packs x int32/int64 "
+          f"x {len(layouts)} layouts ({', '.join(layouts)})")
+    return k1_err, k2_err
+
+
 def phase_kernels(card, blob, flat):
-    """K1 and K2 against their twins on the card; returns the kernels'
+    """K1 and K2 against their plain versions on the card (k1_k2_checks),
+    then timed on the main cohort's first 256 MiB chunk and K1 also on its
+    first 128 MiB chain chunk: each C entry point's launches alone on an
+    output or count allocated once, the wrapper, the plain version, and for
+    K1 a device-to-device ``copy_`` of the tape's bytes (its practical
+    floor; another function, so no yardstick). Returns the kernels'
     measured numbers and the main cohort's chunk count."""
     import numpy as np
     import torch
@@ -406,108 +548,85 @@ def phase_kernels(card, blob, flat):
         validate_reference,
     )
 
-    chunks = _chunk_indices(flat, CHUNK_BYTES, pair_aligned=True)
-    n_chunks = len(chunks)
-    k1_err = k2_err = 0
-
-    # K1 on real packs: a small chunk (int32 and the same pack as int64)
-    small = pack_cohort([flat[i] for i in chunks[0][:64]], blob)
-    cases = {"cohort_int32": (small, blob, None),
-             "cohort_int64": (small, blob, np.int64)}
-    edge_blob, edges = _edge_packs()
-    cases.update({k: (p, edge_blob, None) for k, p in edges.items()})
-    for name, (packed, b, dtype) in cases.items():
-        err = _k1_err(*_device_pack(packed, b, dtype), packed.total_res)
-        check(err == 0, f"K1 differs from its twin on {name} (max {err})")
-        k1_err = max(k1_err, err)
-    print(f"K1 vs twin: byte-equal on {', '.join(cases)}")
-
-    # K2 on a valid pack and corrupted copies, int32 and int64
-    combined_len = len(blob.data) + len(small.alt)
-    lengths = np.diff(np.append(small.dst, small.total_res)).astype(np.int32)
-    rng = np.random.default_rng(7)
-    corrupt = {"valid": (small.dst, small.src_biased)}
-    d = small.dst.copy()
-    d[len(d) // 2] += 3
-    corrupt["dst_mid_plus_3"] = (d, small.src_biased)
-    s = small.src_biased.copy()
-    s[0] = combined_len + 100
-    corrupt["srcb0_past_end"] = (small.dst, s)
-    d = small.dst.copy()
-    d[-1] = small.total_res + 5
-    corrupt["dst_last_past_res"] = (d, small.src_biased)
-    for r in range(20):
-        d, s = small.dst.copy(), small.src_biased.copy()
-        i = int(rng.integers(len(d)))
-        if rng.random() < 0.5:
-            d[i] += int(rng.integers(-50, 50))
-        else:
-            s[i] += int(rng.integers(-combined_len, combined_len))
-        corrupt[f"random_{r}"] = (d, s)
-    for name, (d, s) in corrupt.items():
-        for dtype in (np.int32, np.int64):
-            got, want = _k2_pair(
-                to_device(d.astype(dtype), "cuda"),
-                to_device(lengths.astype(dtype), "cuda"),
-                to_device(s.astype(dtype), "cuda"),
-                combined_len, small.total_res,
-            )
-            check(got == want,
-                  f"K2 count {got} != twin {want} on {name} ({dtype})")
-            if not name.startswith("random"):
-                check((want == 0) == (name == "valid"),
-                      f"K2 twin count {want} is wrong on {name}")
-            k2_err = max(k2_err, abs(got - want))
-    print(f"K2 vs twin: equal counts on {len(corrupt)} packs x int32/int64")
-
-    # one full chunk of the main cohort, timed
-    packed = pack_cohort([flat[i] for i in chunks[0]], blob)
-    combined, dst, srcb = _device_pack(packed, blob)
-    total = packed.total_res
-    err = _k1_err(combined, dst, srcb, total)
-    check(err == 0, f"K1 differs from its twin on the full chunk ({err})")
-    k1_ms, _ = _cuda_ms(lambda: segmented_copy(combined, dst, srcb, total),
-                        inner=BACK_TO_BACK)
-    k1_plain, _ = _cuda_ms(
-        lambda: segmented_copy_reference(combined, dst, srcb, total),
-        inner=BACK_TO_BACK,
-    )
-    length = to_device(
-        np.diff(np.append(packed.dst, total)).astype(packed.dst.dtype),
-        "cuda",
-    )
-    got, want = _k2_pair(dst, length, srcb, combined.numel(), total)
-    check(got == want == 0, f"K2 {got} / twin {want} on the full chunk")
-    k2_ms, _ = _cuda_ms(lambda: validate_on_device(
-        dst, length, srcb, combined.numel(), total), inner=BACK_TO_BACK)
-    k2_plain, _ = _cuda_ms(lambda: validate_reference(
-        dst, length, srcb, combined.numel(), total), inner=BACK_TO_BACK)
-    n = dst.numel()
-    # tape read + written, dst + srcb read once each
-    moved = 2 * total + 2 * n * dst.element_size()
-    k1_bound, k1_by = _bound(moved)
-    # dst, length and srcb read once, the count written
-    read = 3 * n * dst.element_size() + 8
-    k2_bound, k2_by = _bound(read)
-    print(f"K1 full chunk on {card}: {total} bytes, {n} tasks ({dst.dtype}): "
-          f"{k1_ms:.4f} ms ({moved / k1_ms / 1e6:.1f} GB/s of {moved} "
-          f"bytes moved; {100 * k1_bound / k1_ms:.1f}% of the "
-          f"{k1_bound:.4f} ms bound), twin {k1_plain:.4f} ms")
-    print(f"K2 full chunk on {card}: {n} tasks: {k2_ms:.4f} ms "
-          f"({read / k2_ms / 1e6:.1f} GB/s of {read} bytes read; "
-          f"{100 * k2_bound / k2_ms:.1f}% of the {k2_bound:.4f} ms bound), "
-          f"twin {k2_plain:.4f} ms")
+    k1_err, k2_err = k1_k2_checks(blob, flat)
+    measured = {}
+    for budget in (CHUNK_BYTES, NEO_CHUNK_BYTES):
+        chunks = _chunk_indices(flat, budget, pair_aligned=True)
+        if budget == CHUNK_BYTES:
+            n_chunks = len(chunks)
+        packed = pack_cohort([flat[i] for i in chunks[0]], blob)
+        combined, dst, srcb = _device_pack(packed, blob)
+        total, n = packed.total_res, dst.numel()
+        err = _k1_err(combined, dst, srcb, total)
+        check(err == 0, f"K1 differs from its plain version on the first "
+                        f"{budget >> 20} MiB chunk ({err})")
+        out = torch.empty(total, dtype=torch.uint8, device="cuda")
+        launch = _launch_ms(_entry("segmented_copy", dst), (
+            combined.data_ptr(), dst.data_ptr(), srcb.data_ptr(), n, total,
+            out.data_ptr()), "K1")
+        check(torch.equal(out, segmented_copy(combined, dst, srcb, total)),
+              "K1's timed launches wrote another tape than its wrapper")
+        wrapper, _ = _cuda_ms(
+            lambda: segmented_copy(combined, dst, srcb, total),
+            inner=BACK_TO_BACK)
+        plain, _ = _cuda_ms(
+            lambda: segmented_copy_reference(combined, dst, srcb, total),
+            inner=BACK_TO_BACK)
+        tape = torch.empty_like(out)
+        floor, _ = _cuda_ms(lambda: tape.copy_(out), inner=BACK_TO_BACK)
+        del out, tape
+        # tape read + written, dst + srcb read once each
+        moved = 2 * total + 2 * n * dst.element_size()
+        bound, by = _bound(moved)
+        print(f"K1 on the first {budget >> 20} MiB chunk on {card}: {total} "
+              f"bytes, {n} tasks ({dst.dtype}): launches alone {launch:.4f} "
+              f"ms ({moved / launch / 1e6:.1f} GB/s of {moved} bytes moved; "
+              f"{100 * bound / launch:.1f}% of the {bound:.4f} ms bound), "
+              f"wrapper {wrapper:.4f} ms, plain {plain:.4f} ms")
+        print(f"K1 floor on the first {budget >> 20} MiB chunk: a "
+              f"device-to-device copy_ of its {total} tape bytes "
+              f"{floor:.4f} ms ({2 * total / floor / 1e6:.1f} GB/s)")
+        if budget == CHUNK_BYTES:
+            measured["segmented_copy"] = dict(
+                max_abs_err=k1_err, ms=launch, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                wrapper_ms=wrapper, floor_ms=floor)
+            length = to_device(
+                np.diff(np.append(packed.dst, total)).astype(
+                    packed.dst.dtype), "cuda")
+            got, want = _k2_pair(dst, length, srcb, combined.numel(), total)
+            check(got == want == 0, f"K2 {got} / plain {want} on the chunk")
+            count = torch.zeros(1, dtype=torch.int64, device="cuda")
+            k2_launch = _launch_ms(_entry("validate", dst), (
+                dst.data_ptr(), length.data_ptr(), srcb.data_ptr(), n,
+                combined.numel(), total, count.data_ptr()), "K2")
+            check(int(count.item()) == 0, "K2's timed launches counted "
+                                          "violations on a valid chunk")
+            k2_wrapper, _ = _cuda_ms(lambda: validate_on_device(
+                dst, length, srcb, combined.numel(), total),
+                inner=BACK_TO_BACK)
+            k2_plain, _ = _cuda_ms(lambda: validate_reference(
+                dst, length, srcb, combined.numel(), total),
+                inner=BACK_TO_BACK)
+            # dst, length and srcb read once, the count written
+            read = 3 * n * dst.element_size() + 8
+            k2_bound, k2_by = _bound(read)
+            print(f"K2 on the first {budget >> 20} MiB chunk on {card}: {n} "
+                  f"tasks: launches alone {k2_launch:.4f} ms "
+                  f"({read / k2_launch / 1e6:.1f} GB/s of {read} bytes "
+                  f"read; {100 * k2_bound / k2_launch:.1f}% of the "
+                  f"{k2_bound:.4f} ms bound), wrapper with its zeroed count "
+                  f"and host wait {k2_wrapper:.4f} ms, plain "
+                  f"{k2_plain:.4f} ms")
+            measured["validate_on_device"] = dict(
+                max_abs_err=k2_err, ms=k2_launch, plain_ms=k2_plain,
+                bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
+                wrapper_ms=k2_wrapper)
+            del length, count
+        del combined, dst, srcb
+        torch.cuda.empty_cache()
     print(f"chunks: {n_chunks} of <= {CHUNK_BYTES} bytes in the main cohort")
-    del combined, dst, srcb, length
-    torch.cuda.empty_cache()
-    return n_chunks, {
-        "segmented_copy": dict(max_abs_err=k1_err, ms=k1_ms,
-                               plain_ms=k1_plain, bound_ms=k1_bound,
-                               bound_by=k1_by, library_ms=None),
-        "validate_on_device": dict(max_abs_err=k2_err, ms=k2_ms,
-                                   plain_ms=k2_plain, bound_ms=k2_bound,
-                                   bound_by=k2_by, library_ms=None),
-    }
+    return n_chunks, measured
 
 
 def _bits_equal(a, b):
@@ -939,7 +1058,7 @@ def _k4_launch_ms(tape, pos, k, h1, g):
     from torch.profiler import ProfilerActivity, profile
 
     from vcf2prot_tpu_torch.downstream import scoring as sc
-    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
+    from vcf2prot_tpu_torch.runtime.build import check_launch
 
     m, h_dim = h1.shape
     tiles, _rows = sc._k4_tiles(m)
@@ -947,17 +1066,14 @@ def _k4_launch_ms(tape, pos, k, h1, g):
                       device=h1.device)
     partial = torch.empty(tiles * out.numel(), dtype=torch.float32,
                           device=h1.device)
-    lib = load_kernels()
-    fn = lib.v2p_window_layer1_grad_i32 if pos.dtype == torch.int32 else (
-        lib.v2p_window_layer1_grad_i64)
+    fn = _entry("window_layer1_grad", pos)
     args = (tape.data_ptr(), pos.data_ptr(), m, k, h1.data_ptr(),
-            g.data_ptr(), h_dim, tiles, partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    ms, _ = _cuda_ms(lambda: check_launch(fn(*args), "K4"),
-                     inner=BACK_TO_BACK)
+            g.data_ptr(), h_dim, tiles, partial.data_ptr(), out.data_ptr())
+    ms = _launch_ms(fn, args, "K4")
+    stream = torch.cuda.current_stream().cuda_stream
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(BACK_TO_BACK):
-            check_launch(fn(*args), "K4")
+            check_launch(fn(*args, stream), "K4")
         torch.cuda.synchronize()
     passes = {}
     for ev in prof.key_averages():
@@ -1690,7 +1806,7 @@ def main():
           "the JAX package vcf2prot_tpu was imported")
     print("vcf2prot_tpu imported: False")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "wrapper_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
@@ -1707,5 +1823,11 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         multihost_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--main-cohort"]:
+        # the main cohort's VCF and FASTA into a directory, for
+        # vcf2prot_tpu_torch.utils.kernel_ab
+        os.makedirs(sys.argv[2], exist_ok=True)
+        print(*write_cohort(sys.argv[2], "shared_cohort", MAIN_SAMPLES,
+                            MAIN_TRANSCRIPTS, MAIN_SEED))
     else:
         main()

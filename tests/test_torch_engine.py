@@ -1,9 +1,12 @@
 """The port's GPU engine (vcf2prot_tpu_torch/runtime/gpu_engine.py) on CPU
 tensors, where the executor wrapper runs its plain twin: byte-equal to the
 serial host oracle and to the JAX TpuEngine (CPU backend, word-aligned and
-per-byte executors) on seeded cohorts, executor edge shapes, int64 packs,
-corrupt-program isolation and pooled (shared alt tape) runs. Tolerance:
-exact bytes."""
+per-byte executors) on seeded cohorts, executor edge shapes, the edges of
+K1's output tiles (tests/k1_edges.py), int64 packs, a combined tape at an
+odd address, corrupt-program isolation and pooled (shared alt tape) runs.
+Tolerance: exact bytes."""
+import os
+import re
 import warnings
 
 import numpy as np
@@ -11,6 +14,7 @@ import pytest
 import torch
 
 from genvcf import random_cohort, shared_cohort, write_synthetic_vcf
+from k1_edges import blob_seq, tile_edge_cases
 from vcf2prot_tpu.compiler.haplotype import (
     AltPool,
     HaplotypeProgram,
@@ -29,6 +33,7 @@ from vcf2prot_tpu.runtime.tpu_engine import TpuEngine
 from vcf2prot_tpu_torch.runtime import gpu_engine
 from vcf2prot_tpu_torch.runtime.engine import Engine, resolve_auto
 from vcf2prot_tpu_torch.runtime.gpu_engine import (
+    K1_TILE_BYTES,
     GpuEngine,
     segmented_copy,
     segmented_copy_reference,
@@ -101,10 +106,10 @@ def mk_prog(tasks, alt, res_len):
     return HaplotypeProgram(exe, src, length, dst, alt, res_len, [])
 
 
-def _pad_tasks(tasks, res_len, target=1200):
+def _pad_tasks(tasks, res_len, target=1200, blob=EDGE_BLOB):
     """Append trailing ref copies so the JAX engine takes its word-aligned
     path (out_bucket >= 1024) as well."""
-    blob_len = len(EDGE_BLOB.data)
+    blob_len = min(len(blob.data), 16)
     out = list(tasks)
     pos = res_len
     while pos < target:
@@ -136,17 +141,46 @@ EDGES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(EDGES))
+# the edges of K1's output tiles: a task over 128 tiles, tile boundaries
+# inside a task, at a task start and on runs of zero-length tasks sharing
+# it, every source offset mod 16, spans at both ends of combined (whose
+# length is not a multiple of 16), total_res 1, 15, 16, 17 and one tile +- 1
+TILE_BLOB = RefBlob.from_ref_seqs({"T": blob_seq()})
+TILE_EDGES = tile_edge_cases(K1_TILE_BYTES)
+
+
+def edge_case(name):
+    """``(tasks, alt, res_len, expected bytes or None, blob)``."""
+    if name in EDGES:
+        return (*EDGES[name], EDGE_BLOB)
+    return (*TILE_EDGES[name], None, TILE_BLOB)
+
+
+@pytest.mark.parametrize("name", sorted(EDGES) + sorted(TILE_EDGES))
 @pytest.mark.parametrize("pad", [False, True], ids=["short", "padded"])
 def test_executor_edges(name, pad, monkeypatch):
-    tasks, alt, res_len, expected = EDGES[name]
+    tasks, alt, res_len, expected, blob = edge_case(name)
     if pad:
-        tasks, res_len = _pad_tasks(tasks, res_len)
+        tasks, res_len = _pad_tasks(tasks, res_len, blob=blob)
     prog = mk_prog(tasks, alt, res_len)
-    outs = GpuEngine(EDGE_BLOB, device="cpu").execute([prog])
+    outs = GpuEngine(blob, device="cpu").execute([prog])
     if expected is not None and not pad:
         assert outs[0].tobytes() == expected
-    assert_all_equal(EDGE_BLOB, [prog], outs, monkeypatch)
+    assert_all_equal(blob, [prog], outs, monkeypatch)
+
+
+def test_k1_tile_bytes_match_the_kernel():
+    """The tile size the edge cases are cut at is the one executor.cu's
+    blocks own."""
+    path = os.path.join(os.path.dirname(gpu_engine.__file__), os.pardir,
+                        "csrc", "executor.cu")
+    with open(path) as fh:
+        src = fh.read()
+    sizes = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                 src).group(1))
+             for name in ("kThreads", "kWordsPerThread", "kWordBytes")}
+    assert (sizes["kThreads"] * sizes["kWordsPerThread"]
+            * sizes["kWordBytes"]) == K1_TILE_BYTES
 
 
 def test_random_task_streams(monkeypatch):
@@ -173,24 +207,42 @@ def test_random_task_streams(monkeypatch):
     assert_all_equal(EDGE_BLOB, progs, outs, monkeypatch)
 
 
-def test_int64_pack_matches_int32():
+def _odd_view(t):
+    """``t`` copied into a contiguous view one byte past its buffer's
+    start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    view = buf[1:]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case", ["cohort"] + sorted(TILE_EDGES))
+def test_int64_pack_matches_int32(case):
     """The executor takes int64 packs (chunks over 2 GiB) as it takes int32
-    ones; the same pack cast to int64 gives the same bytes."""
-    blob, programs = build_programs(4)
+    ones; the same pack cast to int64 gives the same bytes, and so does
+    combined passed as a view at an odd byte address."""
+    if case == "cohort":
+        blob, programs = build_programs(4)
+    else:
+        tasks, alt, res_len = TILE_EDGES[case]
+        blob, programs = TILE_BLOB, [mk_prog(tasks, alt, res_len)]
     packed = pack_cohort(programs, blob)
     assert packed.dst.dtype == np.int32
     combined = to_device(
         np.concatenate([blob.data, np.asarray(packed.alt, np.uint8)]), "cpu"
     )
+    odd = _odd_view(combined)
+    assert odd.data_ptr() % 2 == 1 and odd.is_contiguous()
     out32 = segmented_copy(combined, to_device(packed.dst, "cpu"),
                            to_device(packed.src_biased, "cpu"),
                            packed.total_res)
-    out64 = segmented_copy(combined,
-                           to_device(packed.dst.astype(np.int64), "cpu"),
-                           to_device(packed.src_biased.astype(np.int64), "cpu"),
-                           packed.total_res)
-    assert out64.dtype == torch.uint8
-    assert torch.equal(out32, out64)
+    for comb in (combined, odd):
+        out64 = segmented_copy(
+            comb, to_device(packed.dst.astype(np.int64), "cpu"),
+            to_device(packed.src_biased.astype(np.int64), "cpu"),
+            packed.total_res)
+        assert out64.dtype == torch.uint8
+        assert torch.equal(out32, out64)
     oracle = np.concatenate([execute_tasks(p, blob) for p in programs])
     np.testing.assert_array_equal(out32.numpy(), oracle)
 

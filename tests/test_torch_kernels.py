@@ -1,9 +1,11 @@
 """The port's task-stream validator (vcf2prot_tpu_torch/runtime/kernels.py)
 against the JAX Pallas validator in interpret mode: equal counts on the
-cases of tests/test_kernels.py and on seeded corruptions that straddle the
-Pallas kernel's 2048-task blocks (whose cross-block pairs the JAX wrapper
-counts on the host). Inputs stay in int32 range, where the JAX wrapper's
-int32 arithmetic is exact. Tolerance: equal counts."""
+cases of tests/test_kernels.py, on corruptions where the CUDA kernel's
+groups of 4 tasks take the next dst from another lane, and on seeded
+corruptions that straddle the Pallas kernel's 2048-task blocks (whose
+cross-block pairs the JAX wrapper counts on the host). Inputs stay in int32
+range, where the JAX wrapper's int32 arithmetic is exact. Tolerance: equal
+counts."""
 import numpy as np
 import pytest
 import torch
@@ -57,12 +59,18 @@ def _cohort_case(name):
         srcb[0] = combined_len + 100
     elif name == "dst_past_result":
         dst[-1] = packed.total_res + 5
+    elif name.startswith("dst_plus_3_at_"):
+        # where K2's groups of 4 tasks take the next dst from the next lane
+        # (3, 4), from the next set of 32 groups (127, 128), and the last
+        i = name.rsplit("_", 1)[1]
+        dst[len(dst) - 1 if i == "last" else int(i)] += 3
     return dst, lengths, srcb, combined_len, packed.total_res
 
 
 @pytest.mark.parametrize(
     "name",
-    ["valid", "corrupted_dst", "out_of_bounds_source", "dst_past_result"],
+    ["valid", "corrupted_dst", "out_of_bounds_source", "dst_past_result"]
+    + [f"dst_plus_3_at_{i}" for i in ("3", "4", "127", "128", "last")],
 )
 def test_counts_match_pallas_on_cohort(name):
     twin, wrapped, ref = both_counts(*_cohort_case(name))
@@ -103,13 +111,29 @@ def test_counts_match_pallas_across_block_boundaries(seed):
         assert twin == wrapped == ref, f"trial {trial}"
 
 
-def test_int64_inputs_count_the_same():
+def _shifted(t, elements):
+    """``t`` copied into a view ``elements`` elements past its buffer's
+    start."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype)
+    view = buf[elements:]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("layout", [(0, 0, 0), (1, 1, 1), (1, 2, 3)],
+                         ids=["aligned", "offset_1", "mixed"])
+def test_int64_inputs_count_the_same(layout):
+    """int64 arrays count as int32 ones, and so do arrays that start past
+    their buffers' starts, at one offset or at three (on the card: a scalar
+    head, or every task scalar)."""
     dst, length, srcb, combined_len, res_len = _cohort_case("corrupted_dst")
     t32 = [torch.from_numpy(a) for a in (dst, length, srcb)]
     t64 = [t.long() for t in t32]
-    assert validate_on_device(*t64, combined_len, res_len) == (
-        validate_on_device(*t32, combined_len, res_len)
-    ) > 0
+    want = validate_on_device(*t32, combined_len, res_len)
+    assert want > 0
+    for arrays in (t32, t64):
+        views = [_shifted(a, k) if k else a for a, k in zip(arrays, layout)]
+        assert validate_on_device(*views, combined_len, res_len) == want
 
 
 def test_empty_stream_is_valid():
@@ -127,3 +151,14 @@ def test_validator_checks_its_arguments():
         validate_on_device(a, a[:3], a, 10, 10)
     with pytest.raises(ValueError):
         validate_on_device(a.view(2, 2), a.view(2, 2), a.view(2, 2), 10, 10)
+
+
+def test_kernel_ab_without_sources_prints_its_usage(capsys):
+    """The K1/K2 A/B script exits 2 with its usage, and builds nothing,
+    when it is given no kernel and sources to compare."""
+    from vcf2prot_tpu_torch.utils import kernel_ab
+
+    assert kernel_ab.main([]) == 2
+    assert kernel_ab.main(["k3", "a.vcf", "a.fa", "a.cu"]) == 2
+    err = capsys.readouterr().err
+    assert "v2p_segmented_copy_i32" in err and "v2p_validate_i32" in err

@@ -10,10 +10,11 @@ alt``:
 
 On the TPU this was a delta-scatter + cumsum + gather over every output
 byte (XLA; Mosaic had no arbitrary gather), padded to power-of-two shape
-buckets so that jit compiled once per bucket. The CUDA kernel copies each
-task directly, so neither the word-aligned host program nor the buckets
-exist here: task lengths come from ``dst`` and the tape is exactly
-``total_res`` bytes.
+buckets so that jit compiled once per bucket. The CUDA kernel walks the
+tape by output tiles of :data:`K1_TILE_BYTES`, staging each tile's tasks
+and storing 16-byte words, so neither the word-aligned host program nor
+the buckets exist here: task lengths come from ``dst`` and the tape is
+exactly ``total_res`` bytes.
 """
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ from . import cpu_engine
 from .build import check_launch, load_kernels
 from .kernels import check_task_arrays, validate_on_device
 from .pack import PackedCohort, pack_cohort, program_is_contiguous
+
+# the output tile a block of K1 owns (csrc/executor.cu kTileBytes); the
+# tests and chip_smoke.py build task streams at its edges
+K1_TILE_BYTES = 8192
 
 _TORCH_DTYPE = {
     np.dtype(np.uint8): torch.uint8,

@@ -5,9 +5,10 @@
 Each argument is a CUDA source with K4's C entry point
 (``v2p_window_layer1_grad_i64``, the ABI of ``csrc/scorer_grad.cu``),
 for example the source of an earlier commit unpacked with ``git archive``.
-Each is built with the port's nvcc flags into a library of its own, and
-every version runs on the same inputs (k = 9 and int64 positions unless
-a shape says otherwise). It checks each result bit for bit against
+Each is built with the port's nvcc flags into a library of its own (the
+build, timing and order of ``utils/kernel_ab.py``, which compares K1 and
+K2 the same way), and every version runs on the same inputs (k = 9 and
+int64 positions unless a shape says otherwise). It checks each result bit for bit against
 ``scoring.window_layer1_backward_tiled_reference``, K4's summation order.
 Then it times the versions in the order A, B, ..., B, A: each time is the
 median of 10 CUDA-event timings of 10 back-to-back launches on output and
@@ -16,70 +17,29 @@ and exits non-zero if a version differs from the plain version.
 """
 from __future__ import annotations
 
-import ctypes
-import os
-import statistics
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from ..downstream import scoring as sc
-from ..runtime import build
+from .kernel_ab import build_all, card, compare
 
 # (H, M, k): a training batch and the chain's block for the 128x1 and the
 # 512x3 heads, then long windows (the positions split over the grid)
 SHAPES = ((128, 4096, 9), (512, 4096, 9), (128, 524288, 9),
           (512, 524288, 9), (128, 4096, 600))
 TAPE_BYTES = 1 << 23
-REPS, INNER = 10, 10
-
-
-def _build(i: int, path: str, outdir: str):
-    """K4's i64 entry point of the source at ``path``, built as library
-    ``i``."""
-    lib = os.path.join(outdir, f"k4_{i}.so")
-    proc = subprocess.run(
-        [build._nvcc(), *build.NVCC_FLAGS, *build.LINK_FLAGS, "-o", lib,
-         path], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {path}:\n{proc.stderr[-3000:]}")
-    fn = ctypes.CDLL(lib).v2p_window_layer1_grad_i64
-    fn.argtypes = build.SIGNATURES["v2p_window_layer1_grad_i64"]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _ms(call) -> float:
-    call()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(INNER):
-            call()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / INNER)
-    return statistics.median(times)
+ENTRY = "v2p_window_layer1_grad_i64"
 
 
 def main(paths) -> int:
     if not torch.cuda.is_available() or len(paths) < 1:
         print(__doc__, file=sys.stderr)
         return 2
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    with tempfile.TemporaryDirectory(prefix="k4_ab_") as outdir, \
-            ThreadPoolExecutor(len(paths)) as pool:
-        fns = list(pool.map(lambda ip: _build(*ip, outdir),
-                            enumerate(paths)))
+    print(card())
+    with tempfile.TemporaryDirectory(prefix="k4_ab_") as outdir:
+        fns = build_all(paths, ENTRY, outdir)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         alphabet = torch.frombuffer(bytearray(b"ACDEFGHIKLMNPQRSTVWYX."),
@@ -102,30 +62,13 @@ def main(paths) -> int:
             out = torch.empty_like(want)
             partial = torch.empty(tiles * want.numel(), device="cuda")
             stream = torch.cuda.current_stream().cuda_stream
-
-            def launch(fn):
-                rc = fn(tape.data_ptr(), pos.data_ptr(), m, k,
-                        h1.data_ptr(), g.data_ptr(), h_dim, tiles,
-                        partial.data_ptr(), out.data_ptr(), stream)
-                if rc:
-                    raise RuntimeError(f"K4 launch failed: cudaError_t {rc}")
-
-            order = list(range(len(paths)))
-            order += order[::-1]
-            times = {i: [] for i in order}
-            for i in order:
-                out.fill_(float("nan"))
-                launch(fns[i])
-                torch.cuda.synchronize()
-                if not torch.equal(out, want):
-                    bad += 1
-                    print(f"{paths[i]} H={h_dim} M={m} k={k}: differs from "
-                          "the plain version in K4's order")
-                times[i].append(_ms(lambda: launch(fns[i])))
-            print(f"H={h_dim} M={m} k={k}: " + "; ".join(
-                f"{paths[i]} {' / '.join(f'{t:.4f}' for t in times[i])} ms"
-                for i in range(len(paths))) + " (bit-equal to the plain "
-                "version unless said above)")
+            bad += compare(
+                paths, fns, f"H={h_dim} M={m} k={k} (bit for bit, K4's order)",
+                lambda fn: fn(tape.data_ptr(), pos.data_ptr(), m, k,
+                              h1.data_ptr(), g.data_ptr(), h_dim, tiles,
+                              partial.data_ptr(), out.data_ptr(), stream),
+                lambda: out.fill_(float("nan")),
+                lambda: torch.equal(out, want))
             del head, pos, h1, g, want, out, partial
             torch.cuda.empty_cache()
     return 1 if bad else 0
