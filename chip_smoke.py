@@ -7,7 +7,9 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and nvcc;
 builds the kernels from ``vcf2prot_tpu_torch/csrc`` itself. Phases, each
 failing the run with a non-zero exit:
 
-1. device: the card's name and power limit, torch / CUDA / nvcc / Triton;
+1. device: the card's name and power limit, the peaks every bound is
+   computed from (``vcf2prot_tpu_torch/utils/roofline.py``), torch / CUDA /
+   nvcc / Triton;
 2. build: K1 (executor), K2 (validator), K3 (window scorer) and K4 (its
    gradient) through ``runtime/build.py``, one nvcc per source, all
    started together;
@@ -60,7 +62,8 @@ failing the run with a non-zero exit:
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
-   through ``vcf2prot_tpu_torch.downstream.train.fit``: holdout AUC within
+   through its twin's functions (``vcf2prot_tpu_torch.tools.
+   train_synth_mhc``, on ``downstream.train.fit``): holdout AUC within
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
    synth_mhc_training.tsv``, 128x1 above 8x1; fit walls and step times;
 10. the trained 512x3 head saved with ``save_params`` and served by
@@ -88,7 +91,24 @@ failing the run with a non-zero exit:
    one gloo group on localhost through ``initialize_distributed`` and run
    ``run_multihost_pipeline -g gpu`` on the main cohort, both on the card;
    the union of ``shard_0/`` and ``shard_1/`` is byte-equal to the FASTAs
-   of ``-g mt``, and each child's K1 count is above 0.
+   of ``-g mt``, and each child's K1 count is above 0;
+17. default engine, FASTA path (run right after phase 4): the CLI with no
+   ``-g`` on the main cohort, in a fresh process (``--cold-child``) as a
+   user runs it, must resolve ``auto`` to the card through its D2H probe
+   (its ``-v`` line on stderr), launch K1 at least once a chunk and write
+   phase 4's ``-g mt`` bytes; prints that cold probe, then the D2H (8 MiB)
+   and H2D (16 MiB) probes' rates in this process, a 256 MiB tape's
+   pageable and pinned D2H rates, and a fresh process's start-up
+   (``--startup-child``: ``import torch``, the context, the first kernel);
+18. default engine, ``--neoantigen_only --neoantigen_k 9`` in a fresh
+   process (run right after phase 6): ``auto`` must resolve to the card
+   through the round-trip probe, K1 and K3 must run once a chunk at least,
+   and the rows must equal phase 6's chain within rtol 1e-5 + atol 1e-6;
+19. the batch twin (run right after phase 17): ``python -m
+   vcf2prot_tpu_torch.tools.batch_over_bcf`` with no ``-g`` over a
+   directory holding the main cohort's VCF, in a fresh process: ``auto``
+   must resolve to the card, K1 must run once a chunk at least, and the
+   file's directory must equal phase 4's ``-g mt -s``.
 
 A mesh of one card named twice runs the sharded code paths and their
 kernels; it says nothing of multi-GPU scaling, and real multi-GPU and
@@ -97,8 +117,8 @@ multi-node runs stay unverified.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON summary (launches summed
 over the paths; ``ms`` each kernel's launches alone and ``wrapper_ms`` its
-wrapper's, back to back; each kernel's bound from the H100 SXM's published
-3.35 TB/s and 67 TFLOP/s of fp32, and its yardstick's time as
+wrapper's, back to back; each kernel's bound from
+``vcf2prot_tpu_torch/utils/roofline.py``, and its yardstick's time as
 ``library_ms`` and ``one_call_ms``, null where no one call computes the
 same); the last
 line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -153,8 +173,9 @@ K4_PREV_MS = {("128x1", 4096): 0.0661, ("512x3", 4096): 0.1023,
 # K3's long windows: a table read from device memory (k >= 692), and
 # 32-bit row ids
 K3_LONG_KS, K3_LONG_ROWS = (692, 3121), (127, 4096)
-# training: automation_scripts/train_synth_mhc.py's task and heads
-MHC_N, MHC_SEED, MHC_EPOCHS, MHC_BATCH = 100_000, 3, 20, 4096
+# training: automation_scripts/train_synth_mhc.py's task and heads, run
+# through its twin, vcf2prot_tpu_torch/tools/train_synth_mhc.py
+MHC_N, MHC_EPOCHS, MHC_BATCH = 100_000, 20, 4096
 TRAIN_HEADS = {"8x1": dict(hidden=8, depth=1),
                "128x1": dict(hidden=128, depth=1),
                "512x1": dict(hidden=512, depth=1),
@@ -167,9 +188,6 @@ BIG_N, BIG_EPOCHS = 1_000_000, 2
 WINDOW_BYTES = b"ACDEFGHIKLMNPQRSTVWYX."
 # the card the K4 and training phases run on
 DEV = "cuda"
-# the H100 SXM's published device-memory rate and fp32 rate outside the
-# tensor cores (bytes/s, operations/s), for each kernel's bound
-HBM_RATE, FP32_RATE = 3.35e12, 67e12
 # calls a kernel timing spans back to back (phases 3 and 8)
 BACK_TO_BACK = 10
 # K3's shape coverage (phase 3): widths, window lengths and row counts
@@ -183,6 +201,8 @@ SCALING_NOTE = ("one card named twice: this checks the sharded code path "
 DP_HEADS = ("128x1", "512x3")
 # seconds a multi-host child may take (phase 16)
 MULTIHOST_TIMEOUT = 300
+# seconds a default-engine child may take (phases 17-19)
+COLD_TIMEOUT = 300
 
 
 def fail(msg: str):
@@ -208,6 +228,13 @@ def phase_device():
     print(smi)
 
     from vcf2prot_tpu_torch.runtime import build
+    from vcf2prot_tpu_torch.utils import roofline
+
+    print(f"bounds from vcf2prot_tpu_torch/utils/roofline.py: device memory "
+          f"{roofline.PEAK_HBM_BPS:.4g} B/s, fp32 "
+          f"{roofline.PEAK_FP32_FLOPS:.4g} FLOP/s, bf16 "
+          f"{roofline.PEAK_BF16_FLOPS:.4g} FLOP/s (H100 SXM5 datasheet, "
+          f"700 W), on {smi}")
 
     ver = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
@@ -286,27 +313,6 @@ def _cuda_ms(fn, reps=10, inner=1):
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times), out
 
-
-
-def _bound(n_bytes, n_ops=0):
-    """``(bound_ms, bound_by)``: the least time the card could take, the
-    larger of the compulsory bytes over HBM_RATE and the fp32 operations
-    over FP32_RATE."""
-    by_bytes = n_bytes / HBM_RATE * 1e3
-    by_ops = n_ops / FP32_RATE * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                          "operations")
-
-
-def _covered_bytes(pos, k):
-    """Bytes of a buffer that k-byte windows at ``pos`` cover (each read
-    once, however many windows hold it)."""
-    import torch
-
-    if pos.numel() == 0:
-        return 0
-    ps = torch.sort(pos.long()).values
-    return int((ps[1:] - ps[:-1]).clamp(max=k).sum()) + k
 
 
 def _edge_packs():
@@ -547,6 +553,7 @@ def phase_kernels(card, blob, flat):
         validate_on_device,
         validate_reference,
     )
+    from vcf2prot_tpu_torch.utils import roofline
 
     k1_err, k2_err = k1_k2_checks(blob, flat)
     measured = {}
@@ -575,9 +582,8 @@ def phase_kernels(card, blob, flat):
         tape = torch.empty_like(out)
         floor, _ = _cuda_ms(lambda: tape.copy_(out), inner=BACK_TO_BACK)
         del out, tape
-        # tape read + written, dst + srcb read once each
-        moved = 2 * total + 2 * n * dst.element_size()
-        bound, by = _bound(moved)
+        moved = roofline.executor_bytes(total, n, dst.element_size())
+        bound, by = roofline.bound_ms(moved)
         print(f"K1 on the first {budget >> 20} MiB chunk on {card}: {total} "
               f"bytes, {n} tasks ({dst.dtype}): launches alone {launch:.4f} "
               f"ms ({moved / launch / 1e6:.1f} GB/s of {moved} bytes moved; "
@@ -608,9 +614,8 @@ def phase_kernels(card, blob, flat):
             k2_plain, _ = _cuda_ms(lambda: validate_reference(
                 dst, length, srcb, combined.numel(), total),
                 inner=BACK_TO_BACK)
-            # dst, length and srcb read once, the count written
-            read = 3 * n * dst.element_size() + 8
-            k2_bound, k2_by = _bound(read)
+            read = roofline.validator_bytes(n, dst.element_size())
+            k2_bound, k2_by = roofline.bound_ms(read)
             print(f"K2 on the first {budget >> 20} MiB chunk on {card}: {n} "
                   f"tasks: launches alone {k2_launch:.4f} ms "
                   f"({read / k2_launch / 1e6:.1f} GB/s of {read} bytes "
@@ -700,6 +705,7 @@ def phase_k3(card, blob, flat):
         to_device,
     )
     from vcf2prot_tpu_torch.runtime.pack import pack_cohort
+    from vcf2prot_tpu_torch.utils import roofline
 
     k3_shapes(card)
     chunks = _chunk_indices(flat, NEO_CHUNK_BYTES, pair_aligned=True)
@@ -762,10 +768,11 @@ def phase_k3(card, blob, flat):
         fill_ms, _ = _cuda_ms(lambda: fill.fill_(1.0), inner=BACK_TO_BACK)
         del fill
         out_bytes = p.numel() * h_dim * 2
-        n_bytes = (out_bytes + p.numel() * p.element_size()
-                   + _covered_bytes(p, NEO_K) + head.table.numel() * 2
-                   + h_dim * 4)
-        bound, by = _bound(n_bytes, p.numel() * NEO_K * h_dim)
+        n_bytes = roofline.scorer_bytes(
+            p.numel(), h_dim, p.element_size(),
+            roofline.covered_bytes(p, NEO_K), head.table.numel())
+        bound, by = roofline.bound_ms(
+            n_bytes, roofline.scorer_ops(p.numel(), NEO_K, h_dim))
         print(f"K3 {name} on {card}: {p.numel()} windows (block of {blk}): "
               f"bit-equal to its plain version; launch {ms:.4f} ms back to "
               f"back, {single:.4f} ms alone "
@@ -831,19 +838,11 @@ def phase_k3(card, blob, flat):
           f"{-(-m // blk)} launches alone {k3_alone:.4f}, with a bounds "
           f"check in each {k3_checked:.4f}; the chunk's one bounds check "
           f"{check_ms:.4f}")
-    # each torch stage's bound: its inputs read once, its outputs written
-    # once (the products: h1 read, the scores written)
-    h_dim = head.table.shape[1]
-    idx = dst.element_size()
-    bounds = {
-        "candidate mask": _bound(2 * total + 2 * dst.numel() * idx
-                                 + 2 * ann_s.numel() * ann_s.element_size()),
-        "compaction (nonzero)": _bound(total + m * 8),
-        "fp32 products, layers 2..N": _bound(m * h_dim * 2 + m * 4,
-                                             2 * m * h_dim),
-        "rank: 2 stable sorts + select + pack": _bound(
-            m * 12 + fetched.numel()),
-    }
+    bounds = {stage: roofline.bound_ms(*work)
+              for stage, work in roofline.chain_stage_bytes(
+                  total, dst.numel(), dst.element_size(), ann_s.numel(),
+                  ann_s.element_size(), m, head.table.shape[1],
+                  fetched.numel()).items()}
     print("chain stage bounds (ms): " + "; ".join(
         f"{k} {b:.4f} by {by}" for k, (b, by) in bounds.items()))
     t_run = []
@@ -909,6 +908,176 @@ def phase_main(card, workdir, vcf, fa, n_chunks):
           f"-g gpu {gpu_s:.3f} s wall, -g mt {mt_s:.3f} s wall; "
           f"K1 launches {k1} for {n_chunks} chunks")
     return gpu_s
+
+
+def _tape_d2h_rates(nbytes):
+    """Device-to-host rates (bytes/s, host clock, median of 3) of one tape
+    of ``nbytes`` on the card: into fresh pageable memory, as the FASTA
+    path's ``collect`` copies, and into a pinned buffer allocated once."""
+    import torch
+
+    tape = torch.randint(0, 255, (nbytes,), dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def rate(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return nbytes / statistics.median(times)
+
+    rates = rate(lambda: tape.cpu()), rate(lambda: pinned.copy_(tape))
+    del tape, pinned
+    return rates
+
+
+def _cold_run(what, module, *argv):
+    """``module``'s ``main(argv)`` in a fresh process of this script
+    (``--cold-child``), as ``python -m module`` runs it for a user: nothing
+    on the card yet, no VCF2PROT_PREFER_DEVICE. ``auto`` must resolve to
+    the card, on every ``-g auto`` line of the child's stderr. Returns the
+    child's stdout lines, those ``-g auto`` lines, its launches and main's
+    wall."""
+    env = dict(os.environ)
+    env.pop("VCF2PROT_PREFER_DEVICE", None)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cold-child",
+             module, *argv],
+            capture_output=True, text=True, env=env, timeout=COLD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: the child outlasted {COLD_TIMEOUT} s")
+    check(proc.returncode == 0, f"{what}: the child exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    child = json.loads(next(ln for ln in reversed(lines)
+                            if ln.startswith('{"rc"')))
+    check(child["rc"] == 0, f"{what}: main returned {child['rc']}: "
+                            f"{proc.stderr[-2000:]}")
+    auto = [ln for ln in proc.stderr.splitlines() if "-g auto for the" in ln]
+    check(auto and all(ln.endswith("; engine gpu") for ln in auto),
+          f"{what}: -g auto did not resolve to gpu: "
+          f"{auto or 'no -g auto line on stderr'}")
+    return lines, auto, child, child.pop("wall_s")
+
+
+def cold_child(module, *argv):
+    """One run of phases 17-19 in this fresh process: ``module``'s main on
+    ``argv``; the last line holds its return code, the kernels' launches
+    and main's wall."""
+    import importlib
+
+    main_fn = importlib.import_module(module).main
+    t0 = time.perf_counter()
+    rc = main_fn(list(argv))
+    wall = time.perf_counter() - t0
+    from vcf2prot_tpu_torch.downstream.scoring import window_layer1
+    from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
+
+    print(json.dumps({"rc": rc, "segmented_copy": segmented_copy.launches,
+                      "window_layer1": window_layer1.launches,
+                      "wall_s": round(wall, 3)}), flush=True)
+
+
+def startup_child():
+    """Phase 17's start-up timing in this fresh process, seconds on the
+    host clock as the last line: ``import torch``, the CUDA check, the
+    first upload of 8 MiB (the context), the first ``(x + 1).cpu()`` (its
+    kernel's load and the copy) and a second one (the copy alone)."""
+    t = [time.perf_counter()]
+    import numpy as np
+    import torch
+
+    t.append(time.perf_counter())
+    check(torch.cuda.is_available(), "no CUDA device in the child")
+    t.append(time.perf_counter())
+    x = torch.from_numpy(
+        np.random.randint(0, 255, 1 << 23, dtype=np.uint8)).to("cuda")
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    for _ in range(2):
+        (x + 1).cpu()
+        t.append(time.perf_counter())
+    names = ("import torch", "is_available", "first upload",
+             "first (x + 1).cpu()", "second (x + 1).cpu()")
+    print(json.dumps({name: round(b - a, 6)
+                      for name, a, b in zip(names, t, t[1:])}))
+
+
+def _startup_seconds():
+    """:func:`startup_child` in a fresh process of this script."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--startup-child"],
+        capture_output=True, text=True, timeout=COLD_TIMEOUT)
+    check(proc.returncode == 0, f"start-up child exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_default_fasta(card, workdir, vcf, fa, n_chunks):
+    """17: the CLI with no -g on the main cohort in a fresh process, after
+    phase 4: ``auto`` must pick the card by its D2H probe, K1 must run on
+    every chunk, and the FASTAs must equal phase 4's ``-g mt``. Prints the
+    cold process's probe, then this process's probes at their default
+    sizes, the pageable and pinned D2H rates of a 256 MiB tape and a fresh
+    process's start-up. Returns the path's launches."""
+    from vcf2prot_tpu_torch.runtime import engine as engine_mod
+
+    out = os.path.join(workdir, "auto")
+    os.makedirs(out)
+    _lines, auto, child, wall = _cold_run(
+        "default engine, FASTA path", "vcf2prot_tpu_torch.cli",
+        "-f", vcf, "-r", fa, "-o", out, "-s", "-v")
+    k1 = child["segmented_copy"]
+    check(k1 >= n_chunks, f"K1 launched {k1} times for {n_chunks} chunks")
+    n = _same_outputs(out, os.path.join(workdir, "mt"),
+                      "default engine, FASTA path")
+    engine_mod._PROBE_CACHE.pop(("h2d", 1 << 24), None)
+    d2h = engine_mod._probe_d2h_rate(1 << 23)
+    h2d = engine_mod.h2d_rate(1 << 24)
+    pageable, pinned = _tape_d2h_rates(CHUNK_BYTES)
+    startup = _startup_seconds()
+    print(f"default engine, FASTA path on {card}, a fresh process: "
+          f"{auto[0]}; {n} files byte-identical to -g mt; {wall:.3f} s "
+          f"wall of main; K1 launches {k1} for {n_chunks} chunks")
+    print(f"probes on {card} (host clock), in this process after phases "
+          f"1-4: D2H {d2h:.6g} B/s of 8 MiB, H2D {h2d:.6g} B/s of 16 MiB "
+          f"(marginal); one {CHUNK_BYTES}-byte tape to the host: pageable "
+          f"{pageable:.6g} B/s, pinned {pinned:.6g} B/s")
+    print(f"a fresh process's start-up on {card} (host clock, s): "
+          f"{json.dumps(startup)}")
+    shutil.rmtree(out)
+    return {"segmented_copy": k1}
+
+
+def phase_batch(card, workdir, vcf, fa, n_chunks):
+    """19: the batch twin, ``tools/batch_over_bcf.py`` with no -g, over a
+    directory holding the main cohort's VCF, in a fresh process after
+    phase 4: ``auto`` must pick the card, K1 must run on every chunk, and
+    the file's directory must equal phase 4's ``-g mt -s``. Returns the
+    path's launches."""
+    indir = os.path.join(workdir, "batch_in")
+    out = os.path.join(workdir, "batch_out")
+    os.makedirs(indir)
+    os.symlink(vcf, os.path.join(indir, "cohort.vcf"))
+    lines, auto, child, wall = _cold_run(
+        "batch twin", "vcf2prot_tpu_torch.tools.batch_over_bcf",
+        "-d", indir, "-r", fa, "-o", out, "-s")
+    check("processed 1/1 files" in lines,
+          f"batch twin printed {lines[-3:]}, not processed 1/1 files")
+    k1 = child["segmented_copy"]
+    check(k1 >= n_chunks, f"K1 launched {k1} times for {n_chunks} chunks")
+    n = _same_outputs(os.path.join(out, "cohort"),
+                      os.path.join(workdir, "mt"), "batch twin")
+    print(f"batch twin on {card}, a fresh process: {auto[0]}; {n} files "
+          f"byte-identical to -g mt; {wall:.3f} s wall of main; K1 "
+          f"launches {k1} for {n_chunks} chunks")
+    shutil.rmtree(out)
+    shutil.rmtree(indir)
+    return {"segmented_copy": k1}
 
 
 def phase_debug(workdir, vcf, fa):
@@ -981,6 +1150,36 @@ def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
     for d in (batch, host):
         shutil.rmtree(d)
     return launches, chain_s
+
+
+def phase_default_neo(card, workdir, vcf, fa, n_neo_chunks):
+    """18: ``--neoantigen_only --neoantigen_k 9`` with no -g on the main
+    cohort in a fresh process, after phase 6: ``auto`` must pick the card
+    by its round-trip probe, K1 and K3 must run on every chunk, and the
+    rows must equal phase 6's chain within rtol 1e-5 + atol 1e-6. Returns
+    the path's launches."""
+    from vcf2prot_tpu_torch.downstream.compare import reports_disagree
+
+    out = os.path.join(workdir, "neo_auto")
+    os.makedirs(out)
+    _lines, auto, child, wall = _cold_run(
+        "default engine, --neoantigen_only", "vcf2prot_tpu_torch.cli",
+        "-f", vcf, "-r", fa, "-o", out, "--neoantigen_only", "-v",
+        "--neoantigen_k", str(NEO_K), "--neoantigen_top", str(NEO_TOP))
+    launches = {"segmented_copy": child["segmented_copy"],
+                "window_layer1": child["window_layer1"]}
+    for name, n in launches.items():
+        check(n >= n_neo_chunks,
+              f"{name} launched {n} times for {n_neo_chunks} chunks")
+    msg = reports_disagree(out, os.path.join(workdir, "neo_chain"),
+                           atol=1e-6, rtol=1e-5)
+    check(msg is None, f"default engine chain against phase 6's: {msg}")
+    print(f"default engine, --neoantigen_only on {card}, a fresh process: "
+          f"{auto[0]}; {len(os.listdir(out))} TSVs equal to phase 6's -g "
+          f"gpu chain (rtol 1e-5 + atol 1e-6); {wall:.3f} s wall of main; "
+          f"launches {launches} for {n_neo_chunks} chunks")
+    shutil.rmtree(out)
+    return launches
 
 
 def _reports(d):
@@ -1092,7 +1291,8 @@ def phase_k4(card):
     import torch
 
     from vcf2prot_tpu_torch.downstream import scoring as sc
-    from vcf2prot_tpu_torch.downstream.scoring import VOCAB, init_params
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.utils import roofline
 
     rng = np.random.default_rng(11)
     alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
@@ -1157,9 +1357,11 @@ def phase_k4(card):
             library, lib_d = _k4_yardstick(tape, pos, k, head, h1, g)
             lib_err = float((lib_d - want[0]).abs().max())
             h_dim = h1.shape[1]
-            n_bytes = (2 * h1.numel() * 2 + m * pos.element_size()
-                       + _covered_bytes(pos, k) + (k * VOCAB + 1) * h_dim * 4)
-            bound, by = _bound(n_bytes, m * k * h_dim)
+            n_bytes = roofline.scorer_grad_bytes(
+                m, k, h_dim, pos.element_size(),
+                roofline.covered_bytes(pos, k))
+            bound, by = roofline.bound_ms(
+                n_bytes, roofline.scorer_ops(m, k, h_dim))
             measured[(name, m)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                        bound_ms=bound, bound_by=by,
                                        library_ms=library, wrapper_ms=wrapper)
@@ -1195,44 +1397,22 @@ def phase_k4(card):
     return measured
 
 
-def _artifact_aucs():
-    """The JAX package's holdout AUCs by head ("8x1", ...) from
-    automation_scripts/artifacts/synth_mhc_training.tsv."""
-    out = {}
-    with open(MHC_ARTIFACT) as fh:
-        for line in fh:
-            cols = line.rstrip("\n").split("\t")
-            if line.startswith("H") and len(cols) == 6:
-                out[cols[0][1:]] = float(cols[3])
-    return out
-
-
-def _mhc_task(n):
-    """The synthetic MHC task and its 80/20 split."""
-    from vcf2prot_tpu_torch.downstream.synth_mhc import make_task
-
-    win, labels, truth = make_task(n=n, seed=MHC_SEED)
-    n_tr = n - n // 5
-    return win, labels, truth, n_tr
-
-
 def phase_train(card):
     """The port's fit on the synthetic MHC task for the four heads (the
-    training path); returns the trained weights by head and the path's
-    K3 and K4 launches."""
-    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    training path), through the functions of tools/train_synth_mhc.py;
+    returns the trained weights by head and the path's K3 and K4
+    launches."""
     from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.scoring import (
-        ScoringHead,
-        score_windows,
         window_layer1,
         window_layer1_backward,
     )
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
-    win, labels, truth, n_tr = _mhc_task(MHC_N)
+    win, labels, truth, n_tr = mhc.split_task(MHC_N)
     ceiling = oracle_auc(truth[n_tr:], labels[n_tr:])
-    artifact = _artifact_aucs()
+    artifact = mhc.read_aucs(MHC_ARTIFACT)
     steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
     # one step first, so that no fit wall holds cuBLAS's and the
     # allocator's start-up
@@ -1241,15 +1421,8 @@ def phase_train(card):
     window_layer1.launches = window_layer1_backward.launches = 0
     aucs, trained = {}, {}
     for name, shape in TRAIN_HEADS.items():
-        t0 = time.perf_counter()
-        trained[name] = train.fit(
-            win[:n_tr], labels[:n_tr], epochs=MHC_EPOCHS,
-            batch_size=MHC_BATCH, seed=0,
-            params=init_params(NEO_K, seed=0, **shape), device=DEV)
-        wall = time.perf_counter() - t0
-        head = ScoringHead.from_params(trained[name]).to(DEV)
-        scores = score_windows(win[n_tr:], head).cpu().numpy()
-        aucs[name] = train.auc(scores, labels[n_tr:])
+        trained[name], aucs[name], wall = mhc.train_config(
+            win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
         print(f"train {name} on {card}: holdout AUC {aucs[name]:.4f} "
               f"(JAX package's artifact {artifact[name]:.4f}, oracle "
               f"ceiling {ceiling:.4f}); fit wall {wall:.3f} s for {steps} "
@@ -1274,8 +1447,9 @@ def _step_ms(params, devices=(DEV,), reps=20):
 
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.scoring import TrainableHead
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
-    win, labels, _truth, _n = _mhc_task(MHC_BATCH)
+    win, labels, _truth, _n = mhc.split_task(MHC_BATCH)
     replicas = [TrainableHead.from_params(params).to(d) for d in devices]
     opt = torch.optim.Adam(replicas[0].parameters(), lr=1e-3)
     rows = MHC_BATCH // len(devices)
@@ -1336,11 +1510,12 @@ def phase_serve_trained(card, workdir, vcf, fa, params):
         fold_table,
         score_windows,
     )
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
     npz = os.path.join(workdir, "trained_512x3.npz")
     train.save_params(npz, params)
     phase_wide(workdir, vcf, fa, npz, "trained 512x3")
-    win, _labels, _truth, n_tr = _mhc_task(MHC_N)
+    win, _labels, _truth, n_tr = mhc.split_task(MHC_N)
     trainable = TrainableHead.from_params(params).to(DEV)
     serving = ScoringHead.from_params(params).to(DEV)
     with torch.no_grad():
@@ -1374,8 +1549,9 @@ def phase_train_checks(card):
         ScoringHead,
         score_windows,
     )
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
-    win, labels, _truth, n_tr = _mhc_task(BIG_N)
+    win, labels, _truth, n_tr = mhc.split_task(BIG_N)
     t0 = time.perf_counter()
     big = train.fit(win[:n_tr], labels[:n_tr], epochs=BIG_EPOCHS,
                     batch_size=MHC_BATCH, seed=0,
@@ -1389,7 +1565,7 @@ def phase_train_checks(card):
           f"clock, upload included); holdout AUC {big_auc:.4f}")
     check(big_auc > 0.85, f"the 1 M fit's holdout AUC is {big_auc}")
 
-    win, labels, _truth, n_tr = _mhc_task(MHC_N)
+    win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     a, b = (train.fit(win[:n_tr], labels[:n_tr], epochs=2,
                       batch_size=MHC_BATCH, seed=0, device=DEV)
             for _ in range(2))
@@ -1572,11 +1748,12 @@ def phase_dp_train(card):
         window_layer1,
         window_layer1_backward,
     )
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
     mesh = (torch.device("cuda", 0),) * MESH_SHARDS
-    win, labels, truth, n_tr = _mhc_task(MHC_N)
+    win, labels, truth, n_tr = mhc.split_task(MHC_N)
     ceiling = oracle_auc(truth[n_tr:], labels[n_tr:])
-    artifact = _artifact_aucs()
+    artifact = mhc.read_aucs(MHC_ARTIFACT)
     steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
     window_layer1.launches = window_layer1_backward.launches = 0
     for name in DP_HEADS:
@@ -1755,12 +1932,17 @@ def main():
         segmented_copy.launches = 0
         single_s = phase_main(card, workdir, *big, n_chunks)
         paths = {"main": {"segmented_copy": segmented_copy.launches}}
+        paths["default engine FASTA"] = phase_default_fasta(
+            card, workdir, *big, n_chunks)
+        paths["batch twin"] = phase_batch(card, workdir, *big, n_chunks)
         paths["sharded FASTA"] = phase_sharded_fasta(
             card, workdir, *big, *fasta_shards, single_s)
         paths["multi-host"] = phase_multihost(card, workdir, *big)
         shutil.rmtree(os.path.join(workdir, "gpu"))
         shutil.rmtree(os.path.join(workdir, "mt"))
         paths["neoantigen chain"], chain_s = phase_neo(
+            card, workdir, *big, n_neo_chunks)
+        paths["default engine chain"] = phase_default_neo(
             card, workdir, *big, n_neo_chunks)
         paths["sharded chain"] = phase_sharded_neo(
             card, workdir, *big, *neo_shards, chain_s)
@@ -1823,6 +2005,10 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         multihost_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--cold-child"]:
+        cold_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--startup-child"]:
+        startup_child()
     elif sys.argv[1:2] == ["--main-cohort"]:
         # the main cohort's VCF and FASTA into a directory, for
         # vcf2prot_tpu_torch.utils.kernel_ab

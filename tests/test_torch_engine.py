@@ -30,6 +30,7 @@ from vcf2prot_tpu.runtime import cpu_engine
 from vcf2prot_tpu.runtime.cpu_engine import execute_tasks
 from vcf2prot_tpu.runtime.pack import pack_cohort
 from vcf2prot_tpu.runtime.tpu_engine import TpuEngine
+from vcf2prot_tpu_torch.runtime import engine as engine_mod
 from vcf2prot_tpu_torch.runtime import gpu_engine
 from vcf2prot_tpu_torch.runtime.engine import Engine, resolve_auto
 from vcf2prot_tpu_torch.runtime.gpu_engine import (
@@ -398,7 +399,12 @@ def test_engine_from_str():
 
 
 def test_auto_follows_cuda_availability(monkeypatch):
+    """auto follows the probes: with no CUDA device the real D2H probe
+    reads 0 (MT); a card whose probed link passes runs the GPU engine."""
+    monkeypatch.setattr(engine_mod, "_PROBE_CACHE", {})
+    monkeypatch.delenv("VCF2PROT_PREFER_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_auto() is Engine.MT
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(engine_mod, "_PROBE_CACHE", {})
+    monkeypatch.setattr(engine_mod, "_probe_d2h_rate", lambda n: 2.9e9)
     assert resolve_auto() is Engine.GPU

@@ -405,15 +405,20 @@ def test_cli_neoantigen_only_requires_k(cli_cohort, tmp_path):
 
 
 def test_resolve_auto_workloads(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    """Both workloads pick the card when their probes pass (the D2H rate
+    for fasta, the round trip for neoantigen_device); =0 never probes."""
+    monkeypatch.setattr(engine_mod, "_PROBE_CACHE", {})
+    monkeypatch.setattr(engine_mod, "_probe_d2h_rate", lambda n: 2.9e9)
+    monkeypatch.setattr(engine_mod, "_probe_device_roundtrip", lambda: True)
     monkeypatch.delenv("VCF2PROT_PREFER_DEVICE", raising=False)
     for workload in ("fasta", "neoantigen_device"):
         assert resolve_auto(workload=workload) is Engine.GPU
     with pytest.raises(ValueError, match="workload"):
         resolve_auto(workload="training")
     monkeypatch.setenv("VCF2PROT_PREFER_DEVICE", "0")
-    monkeypatch.setattr(torch.cuda, "is_available",
-                        lambda: pytest.fail("probed the device"))
+    for probe in ("_probe_d2h_rate", "_probe_device_roundtrip"):
+        monkeypatch.setattr(engine_mod, probe,
+                            lambda *a: pytest.fail("probed the device"))
     for workload in ("fasta", "neoantigen_device"):
         assert resolve_auto(workload=workload) is Engine.MT
 
@@ -431,7 +436,7 @@ def test_auto_passes_the_workload(cli_cohort, tmp_path, monkeypatch, flags,
 
     seen = []
 
-    def fake(workload="fasta"):
+    def fake(workload="fasta", verbose=False):
         seen.append(workload)
         return Engine.MT
 

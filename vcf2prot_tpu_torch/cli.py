@@ -46,7 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         help=(
             "execution engine: st, mt, gpu (= cuda, the CUDA device) or auto "
-            "(default auto: gpu when a CUDA device is present, else mt)"
+            "(default auto: gpu when the card passes the probe of the "
+            "run's workload, else mt, with one line on stderr saying why "
+            "when a card is visible)"
         ),
     )
     p.add_argument("-v", "--verbose", action="store_true")

@@ -356,7 +356,8 @@ def _resolve(cfg) -> Engine:
     # reference (vcf2prot_tpu/pipeline.py:323-335)
     return resolve_auto(
         workload="neoantigen_device"
-        if (cfg.neoantigen_k and cfg.neoantigen_only) else "fasta"
+        if (cfg.neoantigen_k and cfg.neoantigen_only) else "fasta",
+        verbose=cfg.verbose,
     )
 
 

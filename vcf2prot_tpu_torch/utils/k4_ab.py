@@ -12,8 +12,9 @@ int64 positions unless a shape says otherwise). It checks each result bit for bi
 ``scoring.window_layer1_backward_tiled_reference``, K4's summation order.
 Then it times the versions in the order A, B, ..., B, A: each time is the
 median of 10 CUDA-event timings of 10 back-to-back launches on output and
-scratch allocated once. It prints the card's name and power limit first,
-and exits non-zero if a version differs from the plain version.
+scratch allocated once, with its share of ``utils/roofline.py``'s bound.
+It prints the card's name and power limit first, and exits non-zero if a
+version differs from the plain version.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import tempfile
 import torch
 
 from ..downstream import scoring as sc
+from . import roofline
 from .kernel_ab import build_all, card, compare
 
 # (H, M, k): a training batch and the chain's block for the 128x1 and the
@@ -68,7 +70,12 @@ def main(paths) -> int:
                               h1.data_ptr(), g.data_ptr(), h_dim, tiles,
                               partial.data_ptr(), out.data_ptr(), stream),
                 lambda: out.fill_(float("nan")),
-                lambda: torch.equal(out, want))
+                lambda: torch.equal(out, want),
+                roofline.bound_ms(
+                    roofline.scorer_grad_bytes(
+                        m, k, h_dim, pos.element_size(),
+                        roofline.covered_bytes(pos, k)),
+                    roofline.scorer_ops(m, k, h_dim)))
             del head, pos, h1, g, want, out, partial
             torch.cuda.empty_cache()
     return 1 if bad else 0

@@ -17,8 +17,10 @@ against ``validate_reference``.
 
 Versions are timed in the order A, B, ..., B, A: each time is the median of
 10 CUDA-event timings of 10 back-to-back launches on an output or count
-allocated once. It prints the card's name and power limit first, and exits
-non-zero if a version differs from the plain version.
+allocated once, printed with its share of the bound that ``utils/roofline.py``
+gives the case (the yardstick ``chip_smoke.py`` reports). It prints the
+card's name and power limit first, and exits non-zero if a version differs
+from the plain version.
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
 """
@@ -35,6 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..runtime import build
+from . import roofline
 
 REPS, INNER = 10, 10
 ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32"}
@@ -86,10 +89,12 @@ def card() -> str:
         check=True).stdout.strip()
 
 
-def compare(paths, fns, label: str, launch, reset, agrees) -> int:
+def compare(paths, fns, label: str, launch, reset, agrees, bound) -> int:
     """Time every version in the order A, B, ..., B, A on one case, each
     run first checked by ``agrees()`` after ``reset()`` and one launch;
-    prints one line and returns the number of runs that disagreed."""
+    prints one line, each time with its share of ``bound`` (``(ms, by)``
+    of ``roofline.bound_ms``), and returns the number of runs that
+    disagreed."""
     order = list(range(len(paths)))
     order += order[::-1]
     times = {i: [] for i in order}
@@ -104,10 +109,12 @@ def compare(paths, fns, label: str, launch, reset, agrees) -> int:
             bad += 1
             print(f"{paths[i]} {label}: differs from the plain version")
         times[i].append(median_ms(lambda: launch(fns[i])))
+    bound_ms, by = bound
     print(f"{label}: " + "; ".join(
-        f"{paths[i]} {' / '.join(f'{t:.4f}' for t in times[i])} ms"
-        for i in range(len(paths))) + " (equal to the plain version unless "
-        "said above)")
+        f"{paths[i]} " + " / ".join(
+            f"{t:.4f} ms ({100 * bound_ms / t:.1f}%)" for t in times[i])
+        for i in range(len(paths))) + f" of the {bound_ms:.4f} ms bound by "
+        f"{by} (equal to the plain version unless said above)")
     return bad
 
 
@@ -157,7 +164,9 @@ def ab_k1(paths, fns, blob, flat) -> int:
             lambda fn: fn(combined.data_ptr(), dst.data_ptr(),
                           srcb.data_ptr(), dst.numel(), total,
                           out.data_ptr(), stream),
-            lambda: out.zero_(), lambda: torch.equal(out, want))
+            lambda: out.zero_(), lambda: torch.equal(out, want),
+            roofline.bound_ms(roofline.executor_bytes(
+                total, dst.numel(), dst.element_size())))
         del combined, dst, srcb, want, out
         torch.cuda.empty_cache()
     return bad
@@ -183,7 +192,9 @@ def ab_k2(paths, fns, blob, flat) -> int:
             lambda fn: fn(d.data_ptr(), length.data_ptr(), srcb.data_ptr(),
                           n, combined.numel(), total, count.data_ptr(),
                           stream),
-            lambda: count.zero_(), lambda: int(count.item()) == want)
+            lambda: count.zero_(), lambda: int(count.item()) == want,
+            roofline.bound_ms(roofline.validator_bytes(
+                n, dst.element_size())))
     return bad
 
 
