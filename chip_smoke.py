@@ -10,9 +10,9 @@ failing the run with a non-zero exit:
 1. device: the card's name and power limit, the peaks every bound is
    computed from (``vcf2prot_tpu_torch/utils/roofline.py``), torch / CUDA /
    nvcc / Triton;
-2. build: K1 (executor), K2 (validator), K3 (window scorer) and K4 (its
-   gradient) through ``runtime/build.py``, one nvcc per source, all
-   started together;
+2. build: K1 (executor), K2 (validator), K3 (window scorer), K4 (its
+   gradient) and K5 (adam) through ``runtime/build.py``, one nvcc per
+   source, all started together;
 3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
    the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
    and int64, with combined aligned and at an odd address; K2 count-equal
@@ -59,13 +59,29 @@ failing the run with a non-zero exit:
    previous kernel's time and the yardstick (``torch.autograd.grad`` of
    ``F.embedding_bag`` w.r.t. an fp32 table), which neither may be slower
    than;
+8b. K5 (adam, run after phase 8) against its plain version on the card:
+   the flat parameters of a 128x1 and a 512x3 head, 1,000,003 parameters
+   and the 128x1 size 4 bytes past 16-byte alignment, 3 steps each: p, mu
+   and nu bit-equal, the count advanced; at the heads' sizes its launches
+   in a CUDA graph (as the captured step runs them) and alone back to
+   back, its wrapper and its plain version timed beside its bound and
+   ``torch.optim.Adam(fused=True).step()`` on the same parameters (in a
+   graph with ``capturable=True``, and eager);
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
    through its twin's functions (``vcf2prot_tpu_torch.tools.
-   train_synth_mhc``, on ``downstream.train.fit``): holdout AUC within
+   train_synth_mhc``, on ``downstream.train.fit``, each step a replay of
+   its captured graph, every epoch loop under
+   ``torch.cuda.set_sync_debug_mode("error")``): holdout AUC within
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
-   synth_mhc_training.tsv``, 128x1 above 8x1; fit walls and step times;
+   synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched once
+   a step (replays counted); fit walls;
+9b. step times: each head's captured step against its eager one
+   (``capture=False``) by CUDA events, beside the step's bound; for the
+   128x1 and 512x3 heads the host calls, device kernels and device busy
+   time a step of the epoch loop (``torch.profiler``), then phase 9's fits
+   captured and eager, A B B A, with bit-equal weights;
 10. the trained 512x3 head saved with ``save_params`` and served by
    ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
    against ``-g mt``'s fp32 host report, and the training forward against
@@ -84,9 +100,11 @@ failing the run with a non-zero exit:
    1e-5 + atol 1e-6; K1 and K3 launched on every shard;
 15. data-parallel fit: the 128x1 and 512x3 heads of phase 9 over that mesh
    with a global batch of 4,096: holdout AUC within [artifact - 0.01,
-   ceiling + 0.02], weights after 1 epoch within 5e-3 of the
-   single-device fit on the card, two dp fits bit-equal, fit walls and
-   step times beside the single-device ones;
+   ceiling + 0.02], weights after 1 epoch within 5e-3 (128x1) and 1e-2
+   (512x3; ``DP_TOL``) of the single-device fit on the card for seeds 0-4,
+   and above them with one shard's gradient dropped (a planted fault,
+   ``dp_gaps``), two dp fits bit-equal, fit walls and the eager dp step
+   beside the captured single-device one;
 16. multi-host: two processes of this script (``--multihost-child``) join
    one gloo group on localhost through ``initialize_distributed`` and run
    ``run_multihost_pipeline -g gpu`` on the main cohort, both on the card;
@@ -115,12 +133,14 @@ kernels; it says nothing of multi-GPU scaling, and real multi-GPU and
 multi-node runs stay unverified.
 
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is the kernels' JSON summary (launches summed
-over the paths; ``ms`` each kernel's launches alone and ``wrapper_ms`` its
-wrapper's, back to back; each kernel's bound from
+The line before the last is the kernels' JSON summary, K1-K5 (launches
+summed over the paths, a captured step's counted at each replay; ``ms``
+each kernel's launches alone and ``wrapper_ms`` its wrapper's, back to
+back; each kernel's bound from
 ``vcf2prot_tpu_torch/utils/roofline.py``, and its yardstick's time as
 ``library_ms`` and ``one_call_ms``, null where no one call computes the
-same); the last
+same; K5 also in a CUDA graph, ``graph_ms``, beside ``library_graph_ms``,
+torch's fused adam captured, null for K1-K4); the last
 line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
 package ``vcf2prot_tpu``.
 """
@@ -197,8 +217,24 @@ K3_WIDTHS, K3_KS, K3_ROWS = (8, 100, 128, 512), (8, 9, 11, 30), (
 MESH_SHARDS = 2
 SCALING_NOTE = ("one card named twice: this checks the sharded code path "
                 "and its kernels, and says nothing of multi-GPU scaling")
-# the dp fit's heads (phase 15)
+# the dp fit's heads (phase 15), the seeds of its 1-epoch fits, and how
+# far their weights may lie from the single-device fits'. Adam turns a
+# gradient element whose shards nearly cancel (each rounded to bf16 apart,
+# hazard 11) into lr-sized steps of either sign, so the largest gap over a
+# head's weights grows with their count: at 512x3 the JAX package's own dp
+# fit lies 7.7e-3 from its single-device fit on this task
+# (tests/test_torch_dp_train.py, CPU backend). Each limit lies between the
+# largest sound gap read on an H100 over DP_SEEDS and the smallest with one
+# shard's gradient dropped, a planted fault that phase 15 runs each time
+# and must find above the limit: 128x1 3.06e-3 and 1.57e-2, 512x3 6.84e-3
+# and 2.03e-2
 DP_HEADS = ("128x1", "512x3")
+DP_SEEDS = (0, 1, 2, 3, 4)
+DP_TOL = {"128x1": 5e-3, "512x3": 1e-2}
+# K5's odd size (not a multiple of 4) and its steps a case (phase 8b)
+K5_ODD, K5_STEPS = 1_000_003, 3
+# the heads whose captured fits are held to eager ones (phase 9b)
+CAPTURE_HEADS = ("128x1", "512x3")
 # seconds a multi-host child may take (phase 16)
 MULTIHOST_TIMEOUT = 300
 # seconds a default-engine child may take (phases 17-19)
@@ -313,6 +349,28 @@ def _cuda_ms(fn, reps=10, inner=1):
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times), out
 
+
+
+def _graph_ms(fn, reps=10):
+    """Median of ``reps`` CUDA-event timings of one replay of a CUDA graph
+    holding BACK_TO_BACK calls of ``fn``, divided by BACK_TO_BACK: the
+    device's time a call, without the host's launch work (as a captured
+    training step runs its kernels). ``fn`` runs 3 times first on a side
+    stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(BACK_TO_BACK):
+            fn()
+    ms, _ = _cuda_ms(graph.replay, reps=reps)
+    return ms / BACK_TO_BACK
 
 
 def _edge_packs():
@@ -803,6 +861,7 @@ def phase_k3(card, blob, flat):
     def k3_blocks():
         # as score_positions runs it: one bounds check, then the blocks
         sc._check_layer1_args(tape, pos, NEO_K, head.table, head.b1)
+        sc._check_window_bounds(tape, pos, NEO_K)
         return [sc._launch_layer1(tape, pos[s:s + blk], NEO_K, head.table,
                                   head.b1) for s in range(0, m, blk)]
 
@@ -1397,13 +1456,156 @@ def phase_k4(card):
     return measured
 
 
+def phase_k5(card):
+    """8b: K5 against its plain version on the card: the flat parameters
+    of a 128x1 and a 512x3 head, K5_ODD parameters and the 128x1 size one
+    element past 16-byte alignment, K5_STEPS steps each from count 5:
+    bit-equal, the count advanced by each. At the heads' sizes: its
+    launches alone back to back (``ms``, as K1-K4 are timed) and in a CUDA
+    graph (``graph_ms``, the device's time as the captured step runs it),
+    its wrapper and its plain version, beside its bound and
+    ``torch.optim.Adam(fused=True).step()`` on the same parameters
+    (optax's update up to its rounding order), eager (``library_ms``) and,
+    with ``capturable=True``, in a graph (``library_graph_ms``). Returns
+    its numbers by head."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import adam as ad
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        TrainableHead,
+        init_params,
+    )
+    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
+    from vcf2prot_tpu_torch.utils import roofline
+
+    rng = np.random.default_rng(17)
+    heads = {name: TrainableHead.from_params(
+        init_params(NEO_K, seed=0, **HEADS[name])).to(DEV) for name in HEADS}
+    sizes = {name: h.flat.numel() for name, h in heads.items()}
+    cases = [(name, n, 0) for name, n in sizes.items()]
+    cases += [(f"{K5_ODD} parameters", K5_ODD, 0),
+              ("128x1, 4 bytes past alignment", sizes["128x1"], 1)]
+    lr = 1e-3
+
+    def arrays(n, off):
+        """p, mu, nu (nu >= 0) on the card, ``off`` elements in."""
+        p, mu, nu = (rng.standard_normal(n + off) * s
+                     for s in (0.1, 1e-2, 1e-2))
+        return [torch.from_numpy(a.astype(np.float32)).to(DEV)[off:]
+                for a in (p, mu, np.abs(nu))]
+
+    for what, n, off in cases:
+        got = arrays(n, off)
+        want = [t.clone() for t in got]
+        counts = [torch.tensor([5, 0], dtype=torch.int32, device=DEV)
+                  for _ in range(2)]
+        before = ad.adam_update.launches
+        for _ in range(K5_STEPS):
+            g = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(
+                -6, 1, n)).astype(np.float32)).to(DEV)
+            p, mu, nu = got
+            ad.adam_update(p, g, mu, nu, counts[0], lr)
+            p, mu, nu = want
+            ad.adam_update_reference(p, g, mu, nu, counts[1], lr)
+        torch.cuda.synchronize()
+        check(ad.adam_update.launches == before + K5_STEPS,
+              f"K5 {what}: not launched")
+        for name, a, b in zip(("p", "mu", "nu"), got, want):
+            check(torch.equal(a, b), f"K5 {what}: {name} differs from the "
+                  f"plain version (max |d| {float((a - b).abs().max())})")
+        check(counts[0].tolist() == counts[1].tolist() == [5 + K5_STEPS, 0],
+              f"K5 {what}: count {counts[0].tolist()}, plain "
+              f"{counts[1].tolist()}")
+    print(f"K5 vs plain on {card}: {len(cases)} cases ({', '.join(c[0] for c in cases)}; "
+          f"{K5_STEPS} steps each): p, mu and nu bit-equal, the count "
+          f"advanced {K5_STEPS} times")
+
+    lib = load_kernels()
+    k = ad._consts(lr)
+    measured = {}
+    for name, head in heads.items():
+        n = sizes[name]
+        p, mu, nu = arrays(n, 0)
+        g = torch.randn(n, device=DEV) * 1e-3
+        count = torch.zeros(2, dtype=torch.int32, device=DEV)
+        args = (p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                count.data_ptr(), n, k["neg_lr"], k["b1"], k["omb1"],
+                k["b2"], k["omb2"], k["eps"])
+        # inside a graph, as the captured step runs it: the device's time
+        graph = _graph_ms(lambda: check_launch(lib.v2p_adam(
+            *args, torch.cuda.current_stream().cuda_stream), "K5"))
+        ms = _launch_ms(lib.v2p_adam, args, "K5")
+        wrapper, _ = _cuda_ms(lambda: ad.adam_update(p, g, mu, nu, count, lr),
+                              inner=BACK_TO_BACK)
+        plain, _ = _cuda_ms(lambda: ad.adam_update_reference(
+            p, g, mu, nu, count, lr), inner=BACK_TO_BACK)
+        head.flat_grad.copy_(g)
+        fused = torch.optim.Adam(head.parameters(), lr=lr, fused=True)
+        library, _ = _cuda_ms(fused.step, inner=BACK_TO_BACK)
+        fused = torch.optim.Adam(head.parameters(), lr=lr, fused=True,
+                                 capturable=True)
+        library_graph = _graph_ms(fused.step)
+        bound, by = roofline.bound_ms(roofline.adam_bytes(n),
+                                      roofline.adam_ops(n))
+        measured[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by,
+                              library_ms=library, wrapper_ms=wrapper,
+                              graph_ms=graph, library_graph_ms=library_graph)
+        print(f"K5 {name} ({n} parameters) on {card}: launched alone back "
+              f"to back {ms:.4f} ms ({roofline.adam_bytes(n) / ms / 1e6:.1f} "
+              f"GB/s; {100 * bound / ms:.1f}% of the {bound:.6f} ms bound by "
+              f"{by}), in a CUDA graph {graph:.4f} ms a launch "
+              f"({100 * bound / graph:.1f}%), wrapper {wrapper:.4f} ms, plain "
+              f"{plain:.4f} ms; torch.optim.Adam(fused=True).step() "
+              f"{library:.4f} ms, with capturable=True in a CUDA graph "
+              f"{library_graph:.4f} ms")
+        del p, mu, nu, g, count, fused
+    del heads
+    torch.cuda.empty_cache()
+    return measured
+
+
+@contextlib.contextmanager
+def epoch_loop_watch(sync_error=True, profiler=None):
+    """``downstream.train._epoch_loop`` (a single-device fit's epochs: the
+    permutations, the gathers and every step) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that a wait for the
+    device there raises, and, given a ``torch.profiler.profile`` object,
+    inside it."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import train
+
+    real = train._epoch_loop
+
+    def watched(*args):
+        with profiler if profiler is not None else contextlib.nullcontext():
+            if sync_error:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                real(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if profiler is not None:
+                torch.cuda.synchronize()
+
+    train._epoch_loop = watched
+    try:
+        yield
+    finally:
+        train._epoch_loop = real
+
+
 def phase_train(card):
     """The port's fit on the synthetic MHC task for the four heads (the
-    training path), through the functions of tools/train_synth_mhc.py;
-    returns the trained weights by head and the path's K3 and K4
-    launches."""
-    from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
+    training path), through the functions of tools/train_synth_mhc.py,
+    each step a replay of its captured graph and every epoch loop under
+    ``set_sync_debug_mode("error")``; returns the trained weights by head
+    and the path's K3, K4 and K5 launches (replays counted)."""
     from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.adam import adam_update
+    from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream.scoring import (
         window_layer1,
         window_layer1_backward,
@@ -1419,83 +1621,174 @@ def phase_train(card):
     train.fit(win[:MHC_BATCH], labels[:MHC_BATCH], epochs=1,
               batch_size=MHC_BATCH, device=DEV)
     window_layer1.launches = window_layer1_backward.launches = 0
+    adam_update.launches = 0
     aucs, trained = {}, {}
     for name, shape in TRAIN_HEADS.items():
-        trained[name], aucs[name], wall = mhc.train_config(
-            win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
+        with epoch_loop_watch():
+            trained[name], aucs[name], wall = mhc.train_config(
+                win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
         print(f"train {name} on {card}: holdout AUC {aucs[name]:.4f} "
               f"(JAX package's artifact {artifact[name]:.4f}, oracle "
               f"ceiling {ceiling:.4f}); fit wall {wall:.3f} s for {steps} "
-              f"steps of {MHC_BATCH} ({wall / steps * 1e3:.3f} ms a step, "
-              f"host clock)")
+              f"steps of {MHC_BATCH}, captured ({wall / steps * 1e3:.3f} ms "
+              f"a step, host clock); its epochs waited for the device "
+              f"nowhere (set_sync_debug_mode('error'))")
         check(artifact[name] - 0.01 <= aucs[name] <= ceiling + 0.02,
               f"{name} holdout AUC {aucs[name]:.4f} outside "
               f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
     launches = {"window_layer1": window_layer1.launches,
-                "window_layer1_backward": window_layer1_backward.launches}
+                "window_layer1_backward": window_layer1_backward.launches,
+                "adam_update": adam_update.launches}
+    # each fit: CAPTURE_WARMUP steps, then one replay a step (K3 also
+    # scores each holdout)
+    want = len(TRAIN_HEADS) * (steps + train.CAPTURE_WARMUP)
+    check(launches["window_layer1_backward"] == launches["adam_update"]
+          == want <= launches["window_layer1"],
+          f"training path launches {launches}: K4 and K5 not {want}, or K3 "
+          f"fewer")
     check(aucs["128x1"] > aucs["8x1"],
           f"128x1 AUC {aucs['128x1']} not above 8x1 {aucs['8x1']}")
-    print(f"training path launches: {launches}")
+    print(f"training path launches (replays counted): {launches}")
     return trained, launches
 
 
-def _step_ms(params, devices=(DEV,), reps=20):
-    """Median device time of one training step of MHC_BATCH rows over
-    ``devices`` (one replica each, an equal slice of the batch each): steps
-    back to back, a CUDA event at each step's end."""
+def _step_runner(params, devices=(DEV,), capture=True):
+    """One training step of MHC_BATCH rows of the MHC task over
+    ``devices`` (one replica each, an equal slice of the batch each), as a
+    callable: the fit's own set-up and step (``train._trainer``) on a
+    one-batch epoch, captured on one device unless ``capture`` is False,
+    eager on several, as the dp fit runs it."""
+    import numpy as np
     import torch
 
     from vcf2prot_tpu_torch.downstream import train
-    from vcf2prot_tpu_torch.downstream.scoring import TrainableHead
     from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
     win, labels, _truth, _n = mhc.split_task(MHC_BATCH)
-    replicas = [TrainableHead.from_params(params).to(d) for d in devices]
-    opt = torch.optim.Adam(replicas[0].parameters(), lr=1e-3)
-    rows = MHC_BATCH // len(devices)
-    shards = []
-    for i, d in enumerate(devices):
-        y = torch.from_numpy(labels[i * rows:(i + 1) * rows]).to(d)
-        count = (None if len(devices) == 1
-                 else torch.tensor(float(MHC_BATCH), device=d))
-        shards.append((torch.from_numpy(win[i * rows:(i + 1) * rows]).to(d),
-                       y, torch.ones_like(y), count))
+    devices = tuple(map(torch.device, devices))
+    _replicas, _losses, fill, run = train._trainer(
+        (win, labels, np.ones_like(labels)), params, devices, MHC_BATCH,
+        1e-3, True, 0.0, 1, capture)
+    fill(torch.arange(MHC_BATCH, device=devices[0]))
+    return run
+
+
+def _step_ms(params, devices=(DEV,), capture=True, reps=20):
+    """Median time of one training step (:func:`_step_runner`): steps back
+    to back after 3 more, a CUDA event at each step's end."""
+    import torch
+
+    run = _step_runner(params, devices, capture)
     for _ in range(3):
-        train.train_step(replicas, opt, shards, True)
+        run()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     events[0].record()
     for e in events[1:]:
-        train.train_step(replicas, opt, shards, True)
+        run()
         e.record()
     events[-1].synchronize()
     return statistics.median(a.elapsed_time(b)
                              for a, b in zip(events, events[1:]))
 
 
-def phase_step_times(card, k4):
-    """Step times of each head, the share of K4 in a step, and the cost of
-    K3's per-call bounds check (its one wait per step)."""
-    from vcf2prot_tpu_torch.downstream.scoring import init_params
-    from vcf2prot_tpu_torch.downstream import scoring as sc
+# CUDA API calls (cuda* and cu*) that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
 
-    step = {name: _step_ms(init_params(NEO_K, seed=0, **shape))
-            for name, shape in TRAIN_HEADS.items()}
+
+def _fit_profile(win, labels, n_tr, shape, capture):
+    """One 2-epoch fit of the MHC task, its epoch loop alone under
+    ``torch.profiler``: ``(host calls that put work on a stream, device
+    kernels and copies, device busy ms)`` a step (zeros where the
+    profiler records no such event), and the host calls a step by
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+
+    epochs = 2
+    steps = epochs * -(-n_tr // MHC_BATCH)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with epoch_loop_watch(sync_error=False, profiler=prof):
+        train.fit(win[:n_tr], labels[:n_tr], epochs=epochs,
+                  batch_size=MHC_BATCH, seed=0, device=DEV, capture=capture,
+                  params=init_params(NEO_K, seed=0, **shape))
+    calls, kernels, busy = {}, 0.0, 0.0
+    for ev in prof.key_averages():
+        if ev.key in LAUNCH_CALLS:
+            calls[ev.key] = ev.count / steps
+        total = getattr(ev, "device_time_total", 0) or 0
+        if total and getattr(ev, "device_type", None) == \
+                torch.autograd.DeviceType.CUDA:
+            kernels += ev.count
+            busy += total / 1e3
+    return sum(calls.values()), kernels / steps, busy / steps, calls
+
+
+def phase_step_times(card, k4):
+    """9b: the captured step against the eager one (``capture=False``):
+    device time a step, host calls and device kernels a step, the share of
+    K4, then phase 9's fits captured against eager, A B B A, with their
+    weights bit-equal; beside each head's bound from
+    ``utils/roofline.py``."""
+    import numpy as np
+
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
+    from vcf2prot_tpu_torch.utils import roofline
+
+    step = {}
+    for name, shape in TRAIN_HEADS.items():
+        params = init_params(NEO_K, seed=0, **shape)
+        step[name] = {mode: _step_ms(params, capture=mode == "captured")
+                      for mode in ("captured", "eager")}
     print(f"median step on {card} ({MHC_BATCH} rows, CUDA events, 20 steps "
-          f"back to back): " + "; ".join(f"{n} {v:.4f} ms"
-                                         for n, v in step.items()))
+          f"back to back; captured / eager ms): " + "; ".join(
+              f"{n} {v['captured']:.4f} / {v['eager']:.4f}"
+              for n, v in step.items()))
     for name in HEADS:
+        params = init_params(NEO_K, seed=0, **HEADS[name])
+        bound, by = roofline.train_step_bound_ms(params, MHC_BATCH)
         k4_ms = k4[(name, K4_ROWS[0])]["ms"]
-        print(f"K4 share of a {name} step: {k4_ms:.4f} of {step[name]:.4f} "
-              f"ms ({100 * k4_ms / step[name]:.1f}%)")
-    real = sc._check_window_bounds
-    sc._check_window_bounds = lambda buf, pos, k: None
-    try:
-        free = _step_ms(init_params(NEO_K, seed=0))
-    finally:
-        sc._check_window_bounds = real
-    print(f"K3 bounds check (one wait per step), 128x1: step "
-          f"{step['128x1']:.4f} ms with it, {free:.4f} ms without "
-          f"(measurement only)")
+        print(f"{name} step bound {bound:.6f} ms by {by} "
+              f"(utils/roofline.py: K3, the products, their gradients, K4, "
+              f"K5); captured step {100 * bound / step[name]['captured']:.1f}% "
+              f"of it; K4 {k4_ms:.4f} ms, "
+              f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
+              f"step")
+    win, labels, _truth, n_tr = mhc.split_task(MHC_N)
+    for name in CAPTURE_HEADS:
+        shape = TRAIN_HEADS[name]
+        per = {mode: _fit_profile(win, labels, n_tr, shape, mode == "captured")
+               for mode in ("captured", "eager")}
+        print(f"{name} epoch loop on {card} (torch.profiler, 2 epochs, a "
+              f"step: host calls that put work on a stream / device kernels "
+              f"and copies / device busy ms): " + "; ".join(
+                  f"{mode} {h:.2f} / {kn:.2f} / {b:.4f} ("
+                  + ", ".join(f"{c} {v:.2f}" for c, v in calls.items()) + ")"
+                  for mode, (h, kn, b, calls) in per.items()))
+        kw = dict(epochs=MHC_EPOCHS, batch_size=MHC_BATCH, seed=0,
+                  device=DEV, params=init_params(NEO_K, seed=0, **shape))
+        walls, fits = {"captured": [], "eager": []}, {}
+        for mode in ("captured", "eager", "eager", "captured"):
+            t0 = time.perf_counter()
+            fits[mode] = train.fit(win[:n_tr], labels[:n_tr],
+                                   capture=mode == "captured", **kw)
+            walls[mode].append(time.perf_counter() - t0)
+        for key in fits["captured"]:
+            check(np.array_equal(fits["captured"][key], fits["eager"][key]),
+                  f"{name}: the captured fit differs from the eager one in "
+                  f"{key} (max |d| "
+                  f"{np.abs(fits['captured'][key] - fits['eager'][key]).max()})")
+        print(f"{name} fit walls on {card} ({MHC_EPOCHS} epochs of "
+              f"{-(-n_tr // MHC_BATCH)} steps, host clock, A B B A): "
+              f"captured {', '.join(f'{w:.3f}' for w in walls['captured'])} "
+              f"s, eager {', '.join(f'{w:.3f}' for w in walls['eager'])} s; "
+              f"weights bit-equal")
 
 
 def phase_serve_trained(card, workdir, vcf, fa, params):
@@ -1733,12 +2026,51 @@ def phase_sharded_neo(card, workdir, vcf, fa, n_chunks, shards, single_s):
     return launches
 
 
-def phase_dp_train(card):
-    """15: the data-parallel fit over the repeated-card mesh; returns the
-    path's K3 and K4 launches."""
+def dp_gaps(name, seeds, fault=False):
+    """The largest gap between the weights of a 1-epoch dp fit over the
+    repeated-card mesh and those of the single-device fit of the same seed
+    on the card, for the ``name`` head of the MHC task and each seed. With
+    ``fault``, the dp fit drops the second shard's gradient (its mask set
+    to 0, the global count kept): a planted fault that the limit must
+    see."""
     import numpy as np
     import torch
 
+    from vcf2prot_tpu_torch.downstream import train
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
+
+    mesh = (torch.device("cuda", 0),) * MESH_SHARDS
+    win, labels, _truth, n_tr = mhc.split_task(MHC_N)
+    real = train.train_step
+
+    def dropped(replicas, opt, shards, *args):
+        w, y, m, count = shards[1]
+        return real(replicas, opt, [shards[0], (w, y, m * 0, count),
+                                    *shards[2:]], *args)
+
+    gaps = []
+    for seed in seeds:
+        kw = dict(epochs=1, batch_size=MHC_BATCH, seed=seed, params=init_params(
+            NEO_K, seed=seed, **TRAIN_HEADS[name]))
+        one = train.fit(win[:n_tr], labels[:n_tr], device=DEV, **kw)
+        train.train_step = dropped if fault else real
+        try:
+            dp = train.fit(win[:n_tr], labels[:n_tr], mesh=mesh, **kw)
+        finally:
+            train.train_step = real
+        gaps.append(max(float(np.abs(dp[k] - one[k]).max()) for k in dp))
+    return gaps
+
+
+def phase_dp_train(card):
+    """15: the data-parallel fit over the repeated-card mesh (the fit's
+    step function and epoch loop, eager); returns the path's K3, K4 and K5
+    launches."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.downstream.adam import adam_update
     from vcf2prot_tpu_torch.downstream.scoring import init_params
     from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream import train
@@ -1756,6 +2088,7 @@ def phase_dp_train(card):
     artifact = mhc.read_aucs(MHC_ARTIFACT)
     steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
     window_layer1.launches = window_layer1_backward.launches = 0
+    adam_update.launches = 0
     for name in DP_HEADS:
         t0 = time.perf_counter()
         params = train.fit(
@@ -1776,17 +2109,22 @@ def phase_dp_train(card):
               f"dp {name} holdout AUC {auc:.4f} outside "
               f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
     launches = {"window_layer1": window_layer1.launches,
-                "window_layer1_backward": window_layer1_backward.launches}
+                "window_layer1_backward": window_layer1_backward.launches,
+                "adam_update": adam_update.launches}
     check(all(launches.values()), f"a kernel of the dp fit never ran: "
                                   f"{launches}")
     for name in DP_HEADS:
+        gaps = dp_gaps(name, DP_SEEDS)
+        faults = dp_gaps(name, DP_SEEDS, fault=True)
+        for seed, gap, bad in zip(DP_SEEDS, gaps, faults):
+            check(gap <= DP_TOL[name], f"dp {name}, seed {seed}: 1 epoch "
+                  f"differs from one device by {gap} > {DP_TOL[name]}")
+            check(bad > DP_TOL[name], f"dp {name}, seed {seed}: with one "
+                  f"shard's gradient dropped, 1 epoch differs from one device "
+                  f"by {bad}, not above {DP_TOL[name]}: the check cannot see "
+                  f"that fault")
         kw = dict(batch_size=MHC_BATCH, seed=0,
                   params=init_params(NEO_K, seed=0, **TRAIN_HEADS[name]))
-        dp = train.fit(win[:n_tr], labels[:n_tr], epochs=1, mesh=mesh, **kw)
-        one = train.fit(win[:n_tr], labels[:n_tr], epochs=1, device=DEV,
-                        **kw)
-        d = max(float(np.abs(dp[k] - one[k]).max()) for k in dp)
-        check(d <= 5e-3, f"dp {name}: 1 epoch differs from one device by {d}")
         a, b = (train.fit(win[:n_tr], labels[:n_tr], epochs=2, mesh=mesh,
                           **kw) for _ in range(2))
         for key in a:
@@ -1794,11 +2132,14 @@ def phase_dp_train(card):
                   f"two dp {name} fits with one seed differ in {key}")
         step = _step_ms(kw["params"])
         dp_step = _step_ms(kw["params"], mesh)
-        print(f"dp {name} on {card}: weights after 1 epoch within {d} of "
-              f"the single-device fit; two dp fits (2 epochs) bit-equal; "
+        print(f"dp {name} on {card}: weights after 1 epoch within "
+              f"{', '.join(map(str, gaps))} of the single-device fit (seeds "
+              f"{DP_SEEDS}; limit {DP_TOL[name]}), and "
+              f"{', '.join(map(str, faults))} with one shard's gradient "
+              f"dropped (a planted fault); two dp fits (2 epochs) bit-equal; "
               f"median step of {MHC_BATCH} rows {dp_step:.4f} ms over "
-              f"{MESH_SHARDS} replicas against {step:.4f} ms on one "
-              f"(CUDA events)")
+              f"{MESH_SHARDS} replicas (eager) against {step:.4f} ms on one "
+              f"(captured; CUDA events)")
     return launches
 
 
@@ -1924,6 +2265,7 @@ def main():
         measured["window_layer1"] = k3["128x1"]
         k4 = phase_k4(card)
         measured["window_layer1_backward"] = k4[("128x1", K4_ROWS[0])]
+        measured["adam_update"] = phase_k5(card)["128x1"]
         fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
                                       pairs=False)
         neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
@@ -1957,7 +2299,7 @@ def main():
         npz = os.path.join(workdir, "head_512x3.npz")
         np.savez(npz, **init_params(NEO_K, seed=5, **HEADS["512x3"]))
         phase_wide(workdir, *small, npz, "random 512x3", HOST_ORACLE_TOL)
-        # the training path: K3 forward, K4 backward
+        # the training path: K3 forward, K4 backward, K5, a captured step
         trained, paths["training"] = phase_train(card)
         check(all(paths["training"].values()),
               f"a kernel of the training path never ran: {paths['training']}")
@@ -1974,6 +2316,8 @@ def main():
                           "vcf2prot_tpu/downstream/scoring.py:147"),
         "window_layer1_backward": ("vcf2prot_tpu_torch/csrc/scorer_grad.cu",
                                    "vcf2prot_tpu/downstream/train.py:157"),
+        "adam_update": ("vcf2prot_tpu_torch/csrc/adam.cu",
+                        "vcf2prot_tpu/downstream/train.py:164"),
     }
     launches = dict.fromkeys(meta, 0)
     for counts in paths.values():
@@ -1988,11 +2332,11 @@ def main():
           "the JAX package vcf2prot_tpu was imported")
     print("vcf2prot_tpu imported: False")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "wrapper_ms")
+            "library_ms", "wrapper_ms", "graph_ms", "library_graph_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
-         **{key: measured[name][key] for key in keys},
+         **{key: measured[name].get(key) for key in keys},
          "one_call_ms": measured[name]["library_ms"]}
         for name, (src, rep) in meta.items()
     ]}))

@@ -100,6 +100,39 @@ def test_scorer_counts():
     }
 
 
+# K5's bytes and one training step's bound at 4,096 rows, as PERF.md
+# records them
+STEP_BOUNDS = {
+    "128x1": (37_793, 1_058_204, 0.0003, (0.0026, "bytes"),
+              {"K3": (1_167_104, 4_718_592), "products": (1_065_472,
+                                                          1_048_576),
+               "products' gradients": (3_163_136, 2_097_152),
+               "K4": (2_264_064, 4_718_592), "K5": (1_058_204, 529_102)}),
+    "512x3": (674_465, 18_885_020, 0.0056, (0.1932, "operations"), None),
+}
+
+
+@pytest.mark.parametrize("head", STEP_BOUNDS)
+def test_adam_and_training_step_bounds(head):
+    n_params, adam, adam_ms, step, parts = STEP_BOUNDS[head]
+    hidden, depth = HEADS[head]
+    params = init_params(9, hidden=hidden, depth=depth, seed=0)
+    assert sum(v.size for v in params.values()) == n_params
+    assert roofline.adam_bytes(n_params) == adam == 28 * n_params
+    bound, by = roofline.bound_ms(adam, roofline.adam_ops(n_params))
+    assert (round(bound, 4), by) == (adam_ms, "bytes")
+    costs = roofline.train_step_costs(params, 4096)
+    assert list(costs) == ["K3", "products", "products' gradients", "K4",
+                           "K5"]
+    if parts is not None:
+        assert costs == parts
+    assert costs["K5"] == (adam, roofline.adam_ops(n_params))
+    bound, by = roofline.train_step_bound_ms(params, 4096)
+    assert (round(bound, 4), by) == step
+    assert bound == roofline.bound_ms(
+        sum(b for b, _ in costs.values()), sum(o for _, o in costs.values()))[0]
+
+
 def defined_names(path):
     """Module-level function names and assigned names of a source."""
     names = set()

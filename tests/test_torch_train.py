@@ -496,6 +496,76 @@ def test_from_params_to_params_round_trip():
     assert head.w1.abs().sum() > 0
 
 
+def test_training_forward_checks_no_window_bounds(monkeypatch):
+    """The training forward and its backward never call the bounds check
+    (its windows are inside the buffer by construction, and the check
+    waits for the device); the serving forward still calls it once."""
+    win = BYTES[np.random.default_rng(4).integers(0, 20, (300, K))]
+    head = TrainableHead.from_params(init_params(K, seed=4))
+    serving = ScoringHead.from_params(init_params(K, seed=4))
+    want = score_windows(win, serving)
+
+    def refuse(buf, pos, k):
+        raise AssertionError("_check_window_bounds was called")
+
+    monkeypatch.setattr(scoring, "_check_window_bounds", refuse)
+    got = head(torch.from_numpy(win))
+    got.sum().backward()
+    assert torch.equal(got.detach(), want)
+    assert head.flat_grad.abs().sum() > 0
+    with pytest.raises(AssertionError, match="was called"):
+        score_windows(win, serving)
+    w = torch.from_numpy(win).reshape(-1)
+    with pytest.raises(AssertionError, match="was called"):
+        scoring.window_layer1(w, torch.arange(300) * K, K, serving.table,
+                              serving.b1)
+
+
+def test_trainable_head_parameters_are_views_of_flat_buffers():
+    params = init_params(10, embed_dim=16, hidden=[64, 48], seed=9)
+    head = TrainableHead.from_params(params)
+    sizes = [v.size for v in params.values()]
+    assert head.flat.shape == head.flat_grad.shape == (sum(sizes),)
+    assert head.flat.dtype == head.flat_grad.dtype == torch.float32
+    off = 0
+    for (name, p), size in zip(head.named_parameters(), sizes):
+        assert p.data_ptr() == head.flat.data_ptr() + 4 * off, name
+        assert p.grad.data_ptr() == head.flat_grad.data_ptr() + 4 * off
+        assert torch.equal(head.flat[off:off + size],
+                           torch.from_numpy(params[name].ravel()))
+        off += size
+    # gradients accumulate into flat_grad; zeroing it in place keeps them
+    win = BYTES[np.random.default_rng(9).integers(0, 20, (64, 10))]
+    head(torch.from_numpy(win)).sum().backward()
+    grads = {n: p.grad.clone() for n, p in head.named_parameters()}
+    assert head.flat_grad.abs().sum() > 0
+    head.zero_grad(set_to_none=False)
+    assert not head.flat_grad.any()
+    head(torch.from_numpy(win)).sum().backward()
+    for name, p in head.named_parameters():
+        assert torch.equal(p.grad, grads[name])
+    # moving the head makes both buffers anew, values kept
+    moved = head.to(torch.device("cpu"))
+    assert moved is head and head.embed.data_ptr() == head.flat.data_ptr()
+    assert head.w1.grad.data_ptr() == (head.flat_grad.data_ptr()
+                                       + 4 * params["embed"].size)
+    for name, p in head.named_parameters():
+        assert torch.equal(p.grad, grads[name])
+    back = head.to_params()
+    for name, v in params.items():
+        np.testing.assert_array_equal(back[name], v)
+
+
+def test_cpu_fit_runs_its_step_eagerly_whatever_capture_says():
+    """On the CPU the step runs eagerly: capture=False changes no bit."""
+    win, labels = toy_task(n=300, seed=6)
+    kw = dict(epochs=2, batch_size=128, seed=6)
+    a = cpu_fit(win, labels, **kw)
+    b = cpu_fit(win, labels, capture=False, **kw)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key])
+
+
 # ---- the entry point
 
 

@@ -1,0 +1,123 @@
+"""Adam in optax's order over flat fp32 buffers, with its update as a CUDA
+kernel (K5, ``csrc/adam.cu``).
+
+The port of ``optax.adam`` as ``vcf2prot_tpu/downstream/train.py::fit``
+runs it inside ``fit_body`` (``:106``, ``:164-165``): ``scale_by_adam``
+with b1 0.9, b2 0.999, eps 1e-8 and eps_root 0, the update scaled by
+``-learning_rate`` and added to the parameters. :func:`adam_update` takes
+the parameters, their gradient and the two moments as four flat fp32
+buffers (:class:`~vcf2prot_tpu_torch.downstream.scoring.TrainableHead`
+keeps its parameters and gradients so) and the step count as a device
+int32, so one launch updates a whole head and reads nothing from the host:
+the launch can be captured in a CUDA graph.
+
+``torch.optim.Adam`` is not this update: it moves the first moment with
+``lerp_``, takes its bias corrections in float64 on the host and divides
+``sqrt(v)`` by ``sqrt(bc2)``, where optax takes ``sqrt(v / bc2)`` with
+``1 - b**count`` in fp32 on the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..runtime.build import check_launch, load_kernels
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+INT32_MAX = 2 ** 31 - 1
+
+
+def _consts(lr: float) -> dict:
+    """The update's fp32 constants as optax has them: Python floats (``1 -
+    b1`` and ``-lr`` taken in double) rounded to fp32 where they meet the
+    fp32 arrays."""
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    return dict(neg_lr=f32(-lr), b1=f32(B1), omb1=f32(1 - B1), b2=f32(B2),
+                omb2=f32(1 - B2), eps=f32(EPS))
+
+
+def _check_adam_args(p, g, mu, nu, count) -> None:
+    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu)):
+        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous 1-D fp32 tensor")
+        if t.numel() != p.numel():
+            raise TypeError(f"{name} has {t.numel()} elements, p {p.numel()}")
+    if (count.dtype != torch.int32 or count.shape != (2,)
+            or not count.is_contiguous()):
+        raise TypeError("count must be a contiguous int32 [2] tensor "
+                        "(the step count, then K5's block ticket)")
+    if len({t.device for t in (p, g, mu, nu, count)}) != 1:
+        raise ValueError("p, g, mu, nu and count must share a device")
+
+
+def adam_update_reference(p, g, mu, nu, count, lr: float) -> None:
+    """Plain torch version of K5, in place, one fp32 rounding an op in
+    optax's order: ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*(g*g) +
+    b2*nu``, ``c = count + 1`` (saturating), ``bc = 1 - b**c`` (the double
+    power rounded to fp32), ``p = p + (-lr) * ((mu/bc1) / (sqrt(nu/bc2) +
+    eps))``; ``count[0] = c``. The bias corrections stay device tensors: a
+    division by a Python scalar on the card multiplies by its reciprocal."""
+    k = _consts(lr)
+    old = count[:1]
+    c = torch.where(old < INT32_MAX, old + 1, old)
+    base = torch.tensor([k["b1"], k["b2"]], dtype=torch.float64,
+                        device=p.device)
+    bc = 1.0 - torch.pow(base, c.double()).float()
+    torch.add(g * k["omb1"], mu * k["b1"], out=mu)
+    torch.add((g * g) * k["omb2"], nu * k["b2"], out=nu)
+    u = (mu / bc[0]) / (torch.sqrt(nu / bc[1]) + k["eps"])
+    p.add_(u * k["neg_lr"])
+    count[:1].copy_(c)
+
+
+def adam_update(p, g, mu, nu, count, lr: float) -> None:
+    """One adam step, in place: ``p``, ``mu`` and ``nu`` (contiguous 1-D
+    fp32) from the gradient ``g``, ``count`` (int32 ``[2]``: the step count,
+    then K5's block ticket, 0 between launches) advanced by one. CUDA
+    tensors run K5 on the current stream, with no wait; CPU tensors run
+    :func:`adam_update_reference`."""
+    _check_adam_args(p, g, mu, nu, count)
+    if p.device.type == "cpu":
+        adam_update_reference(p, g, mu, nu, count, lr)
+        return
+    if p.device.type != "cuda":
+        raise ValueError(f"unsupported device {p.device}")
+    k = _consts(lr)
+    lib = load_kernels()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(
+            lib.v2p_adam(p.data_ptr(), g.data_ptr(), mu.data_ptr(),
+                         nu.data_ptr(), count.data_ptr(), p.numel(),
+                         k["neg_lr"], k["b1"], k["omb1"], k["b2"], k["omb2"],
+                         k["eps"], stream),
+            "adam",
+        )
+    adam_update.launches += 1
+
+
+adam_update.launches = 0
+
+
+class Adam:
+    """``optax.adam(learning_rate)`` over one head's flat parameters
+    (``head.flat``, gradients ``head.flat_grad``): K5 on the card, its plain
+    version on the CPU. The state starts as ``optax.adam(...).init``'s: mu
+    and nu zeros, count 0, on the head's device; make it after the head is
+    on its device."""
+
+    def __init__(self, head, learning_rate: float):
+        self.head = head
+        self.learning_rate = learning_rate
+        self.mu = torch.zeros_like(head.flat)
+        self.nu = torch.zeros_like(head.flat)
+        self.count = torch.zeros(2, dtype=torch.int32,
+                                 device=head.flat.device)
+
+    def step(self) -> None:
+        adam_update(self.head.flat, self.head.flat_grad, self.mu, self.nu,
+                    self.count, self.learning_rate)
+
+    def state(self) -> list:
+        """The tensors a step changes: the parameters, mu, nu, the count."""
+        return [self.head.flat, self.mu, self.nu, self.count]

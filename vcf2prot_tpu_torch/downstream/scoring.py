@@ -161,6 +161,8 @@ def _check_windows(buf, pos, k) -> None:
 
 
 def _check_layer1_args(buf, pos, k, table, b1) -> None:
+    """K3's argument types and devices (no wait; the windows' bounds are
+    :func:`_check_window_bounds`')."""
     _check_windows(buf, pos, k)
     if (table.dtype != torch.bfloat16 or table.dim() != 2
             or not table.is_contiguous() or table.shape[0] != k * VOCAB):
@@ -173,7 +175,6 @@ def _check_layer1_args(buf, pos, k, table, b1) -> None:
         raise TypeError("b1 must be a contiguous fp32 [H] tensor")
     if len({t.device for t in (buf, pos, table, b1)}) != 1:
         raise ValueError("buf, pos, table and b1 must share a device")
-    _check_window_bounds(buf, pos, k)
 
 
 def _check_window_bounds(buf, pos, k) -> None:
@@ -217,6 +218,7 @@ def window_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
     :func:`window_layer1_reference`.
     """
     _check_layer1_args(buf, pos, k, table, b1)
+    _check_window_bounds(buf, pos, k)
     return _launch_layer1(buf, pos, k, table, b1)
 
 
@@ -366,14 +368,18 @@ window_layer1_backward.launches = 0
 
 
 class WindowLayer1(torch.autograd.Function):
-    """:func:`window_layer1` (K3) with :func:`window_layer1_backward` (K4)
-    as its gradient. ``table`` (bf16) gets ``dtable`` rounded to bf16, as
+    """K3 with :func:`window_layer1_backward` (K4) as its gradient, for
+    windows the caller keeps inside ``buf``: their bounds are not checked,
+    so neither direction waits for the device (the training forward's
+    windows, ``arange(B) * k`` over ``[B, k]`` rows, are inside by
+    construction). ``table`` (bf16) gets ``dtable`` rounded to bf16, as
     XLA rounds the cotangent of the reference's bf16 table; ``b1`` gets
     ``db1`` in fp32; ``buf`` and ``pos`` get none."""
 
     @staticmethod
     def forward(ctx, buf, pos, k, table, b1):
-        h1 = window_layer1(buf, pos, k, table, b1)
+        _check_layer1_args(buf, pos, k, table, b1)
+        h1 = _launch_layer1(buf, pos, k, table, b1)
         ctx.save_for_backward(buf, pos, h1)
         ctx.k = k
         return h1
@@ -382,7 +388,6 @@ class WindowLayer1(torch.autograd.Function):
     def backward(ctx, g):
         buf, pos, h1 = ctx.saved_tensors
         g = g.contiguous()
-        # the forward checked these windows' bounds: no second sync
         _check_layer1_grad_args(buf, pos, ctx.k, h1, g)
         dtable, db1 = _layer1_backward(buf, pos, ctx.k, h1, g)
         return None, None, None, dtable.to(torch.bfloat16), db1
@@ -514,6 +519,7 @@ class ScoringHead(nn.Module):
         for nothing."""
         out = torch.empty(pos.numel(), dtype=torch.float32, device=buf.device)
         _check_layer1_args(buf, pos, self.k, self.table, self.b1)
+        _check_window_bounds(buf, pos, self.k)
         blk = self.block_rows(pos.numel())
         for s in range(0, pos.numel(), blk):
             out[s:s + blk] = self.rest(_launch_layer1(
@@ -528,6 +534,13 @@ class TrainableHead(nn.Module):
     The forward is :class:`ScoringHead`'s: the fold and every bf16 cast run
     inside the graph, layer 1 is :class:`WindowLayer1` (K3, with K4 as its
     gradient), the later layers :func:`later_layers`.
+
+    The parameters are views of one flat fp32 buffer, ``flat``, in their
+    order, and their gradients views of a second, ``flat_grad``, set once
+    (zero them in place: ``zero_grad(set_to_none=False)``), so that the
+    optimizer (:class:`~vcf2prot_tpu_torch.downstream.adam.Adam`, K5)
+    updates the whole head from four pointers. Moving the head (``.to``)
+    makes both buffers anew on the new device.
     """
 
     def __init__(self, params: dict):
@@ -538,6 +551,32 @@ class TrainableHead(nn.Module):
             self.register_parameter(name, nn.Parameter(
                 torch.tensor(np.asarray(params[name], np.float32))
             ))
+        self._flatten()
+
+    def _flatten(self) -> None:
+        """Make the parameters views of ``flat`` and their gradients views
+        of ``flat_grad``, keeping their values."""
+        params = list(self.parameters())
+        n = sum(p.numel() for p in params)
+        device = params[0].device
+        self.flat = torch.empty(n, dtype=torch.float32, device=device)
+        self.flat_grad = torch.zeros(n, dtype=torch.float32, device=device)
+        off = 0
+        with torch.no_grad():
+            for p in params:
+                view = self.flat[off:off + p.numel()].view_as(p)
+                grad = self.flat_grad[off:off + p.numel()].view_as(p)
+                view.copy_(p)
+                if p.grad is not None:
+                    grad.copy_(p.grad)
+                p.data = view
+                p.grad = grad
+                off += p.numel()
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self._flatten()
+        return self
 
     @classmethod
     def from_params(cls, params: dict) -> "TrainableHead":
@@ -552,7 +591,9 @@ class TrainableHead(nn.Module):
 
     def forward(self, windows) -> torch.Tensor:
         """fp32 scores ``[B]`` of u8 windows ``[B, k]`` on the head's
-        device."""
+        device. Its windows are ``arange(B) * k`` over the rows, inside the
+        buffer by construction: K3 runs with no bounds check, so the
+        forward never waits for the device."""
         b, k = windows.shape
         if k != self.k:
             raise ValueError(f"windows are {k}-mers, the head scores {self.k}")

@@ -12,27 +12,40 @@ What follows the reference exactly: the input checks, the batch size
 (``min(_bucket(batch_size), _bucket(n))``), zero windows padding the rows
 to whole batches under a mask, BCE-with-logits for binary labels and MSE
 for any other, the loss ``sum(per * mask) / max(sum(mask), 1)`` per batch
-plus ``l2 * sum(w * w)`` over the ``w*`` weights, adam (``torch.optim.Adam``
-with optax.adam's defaults: the same update), and an epoch shuffle of all
-padded rows. The shuffle is a ``torch.Generator`` on the device, seeded by
-``seed``: a run is reproducible, but its permutations are not JAX's, so the
-tests feed both the same ones (:func:`_epoch_orders`).
+plus ``l2 * sum(w * w)`` over the ``w*`` weights, ``optax.adam``'s update
+in optax's order (:class:`~vcf2prot_tpu_torch.downstream.adam.Adam`, K5
+on the card), its state starting at zeros with count 0, and an epoch
+shuffle of all padded rows. The shuffle is a ``torch.Generator`` on the
+device, seeded by ``seed``: a run is reproducible, but its permutations
+are not JAX's, so the tests feed both the same ones (:func:`_epoch_orders`).
 
-The reference ran the whole fit as one jitted program. Here it is an eager
-loop on the device: the data is uploaded once, each step's loss is kept in
-a device tensor and fetched once at the end. The one wait per step is K3's
-wrapper checking its windows' bounds.
+The reference ran the whole fit as one jitted program (``fit_body``), with
+nothing crossing the host link until the final fetch. Here the fit is
+device work with no host wait from the first step to the final fetch: the
+data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
+the rows into static epoch buffers on the device (:func:`_epoch_loop`);
+one training step (the batch picked from those buffers by a step count on
+the device, the forward, the loss, the backward through K3, the products
+and K4, then K5; :func:`_step_fn`) is captured in a CUDA graph and
+replayed once per batch (:class:`CapturedStep`); each step's loss lands in
+a device tensor, and the weights and losses are fetched once, at the end.
+On the CPU the same step runs eagerly, on the kernels' plain versions;
+``capture=False`` runs it eagerly on the card, to hold the captured fit
+against it.
 
 ``fit(..., mesh=...)`` is the reference's data-parallel fit
 (``train.py:89-96``, ``:133-216``) over a mesh, a tuple of
 ``torch.device``s that may repeat one: one replica of the head per shard,
 and shard ``i`` takes rows ``[i*rows, (i+1)*rows)`` of every global batch of
-one permutation, drawn on the mesh's first device. Each replica's loss
-divides by the global batch's mask count and adds ``l2 / n_shards``; after
-every replica's backward, the fp32 parameter gradients (each already
-rounded to bf16 where XLA rounds a shard's cotangent, hazard 11) are
-summed in shard order on the first device, adam steps there, and the
-weights are copied back to the other replicas.
+one permutation, drawn on the mesh's first device, into its own epoch
+buffers. Each replica's loss divides by the global batch's mask count and
+adds ``l2 / n_shards``; after every replica's backward, the fp32 parameter
+gradients (each already rounded to bf16 where XLA rounds a shard's
+cotangent, hazard 11) are summed in shard order on the first device, adam
+(K5) steps there, and the weights are copied back to the other replicas.
+It runs the same step function and epoch loop as one device, eagerly
+(capturing it needs peer copies inside a capture), with no wait in a
+step.
 
     python -m vcf2prot_tpu_torch.downstream.train data.tsv out.npz \\
         [--epochs 30] [--lr 1e-3] [--batch 4096] [--seed 0] [--l2 0] \\
@@ -52,7 +65,21 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharded import as_mesh, per_device
-from .scoring import ScoringHead, TrainableHead, init_params, score_windows
+from .adam import Adam, adam_update
+from .scoring import (
+    ScoringHead,
+    TrainableHead,
+    head_shape,
+    init_params,
+    score_windows,
+    window_layer1,
+    window_layer1_backward,
+)
+
+# steps run on a side stream before a capture
+CAPTURE_WARMUP = 3
+# the wrappers (and their launch counters) of the kernels a step launches
+STEP_KERNELS = (window_layer1, window_layer1_backward, adam_update)
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -88,17 +115,19 @@ def batch_loss(scores, y, m, binary: bool, count=None) -> torch.Tensor:
 
 def train_step(replicas, opt, shards, binary: bool,
                l2: float = 0.0) -> torch.Tensor:
-    """One adam step of the replicas of a head (:class:`TrainableHead`s,
+    """One optimizer step of the replicas of a head (:class:`TrainableHead`s,
     one per shard; a single-device fit has one): ``replicas[i]`` takes
     ``shards[i] = (w, y, m, count)``, the u8 windows ``[B, k]``, labels
     and mask of its rows and ``count``, the whole batch's mask count (None:
-    ``m.sum()``). ``opt`` steps the first replica, whose weights are then
-    copied to the others. Returns the sum of the shards' losses on the
-    first replica's device (no wait)."""
+    ``m.sum()``). The other replicas' flat gradients are added to the
+    first's in shard order, ``opt`` (:class:`Adam` in a fit) steps the
+    first replica, whose weights are then copied to the others. Returns the
+    sum of the shards' losses on the first replica's device. Nothing waits
+    for the device, so a single-device step can be captured."""
     n = len(replicas)
     loss = None
     for head, (w, y, m, count) in zip(replicas, shards):
-        head.zero_grad(set_to_none=True)
+        head.flat_grad.zero_()
         part = batch_loss(head(w), y, m, binary, count)
         if l2:
             # added once in all: each shard carries 1/n of it
@@ -108,22 +137,148 @@ def train_step(replicas, opt, shards, binary: bool,
         part.backward()
         part = part.detach()
         loss = part if loss is None else loss + part.to(loss.device)
-    main = list(replicas[0].parameters())
+    main = replicas[0]
     for head in replicas[1:]:
-        for p, q in zip(main, head.parameters()):
-            p.grad += q.grad.to(p.device)
+        main.flat_grad += head.flat_grad.to(main.flat_grad.device)
     opt.step()
     with torch.no_grad():
         for head in replicas[1:]:
-            for p, q in zip(main, head.parameters()):
-                q.copy_(p)
+            head.flat.copy_(main.flat)
     return loss
+
+
+def _step_fn(replicas, opt, shard_bufs, counts, losses, steps,
+             binary: bool, l2: float):
+    """One training step of a fit, on static buffers only: batch ``steps %
+    n_batches`` of each replica's epoch buffers ``shard_bufs[i]`` (windows
+    ``[n_batches, rows, k]``, labels, mask) through :func:`train_step`,
+    with ``counts[b]``, the global batch's mask count (None on one device:
+    the batch's own), its loss into ``losses[steps % len(losses)]``, then
+    ``steps`` (a device int64) advanced. It reads nothing back to the host,
+    so a single-device step can be captured."""
+    n_batches = shard_bufs[0][0].shape[0]
+
+    def step():
+        b = torch.remainder(steps, n_batches).view(1)
+        shards = []
+        for bufs in shard_bufs:
+            bd = b.to(bufs[0].device)
+            w, y, m = (t.index_select(0, bd)[0] for t in bufs)
+            count = (None if counts is None
+                     else counts.index_select(0, b)[0].to(w.device))
+            shards.append((w, y, m, count))
+        loss = train_step(replicas, opt, shards, binary, l2)
+        at = torch.remainder(steps, losses.numel()).view(1)
+        losses.index_copy_(0, at, loss.view(1))
+        steps.add_(1)
+
+    return step
+
+
+class CapturedStep:
+    """A training step captured in one CUDA graph; calling it replays the
+    graph. ``step`` runs CAPTURE_WARMUP times first on a side stream
+    (torch.cuda.graphs' recipe: the allocator, cuBLAS and autograd set up
+    there), and ``state``, every tensor a step changes, is restored after
+    them, so that the captured fit equals the eager one. A capture launches
+    nothing and a replay launches every kernel captured, so each replay
+    adds the captured launches to the counters of STEP_KERNELS. A failed
+    capture or replay raises. The graph holds raw addresses of every tensor
+    the step touches, so the object keeps ``step`` (and through its
+    closure those tensors: the head, the optimizer's state, the epoch
+    buffers, the step count) alive: freed, their memory would be handed to
+    later allocations that the replays then overwrite."""
+
+    def __init__(self, step, state):
+        self.step = step
+        saved = [t.clone() for t in state]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        before = [f.launches for f in STEP_KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            step()
+        self.launches = [f.launches - n for f, n in zip(STEP_KERNELS, before)]
+        for f, n in zip(STEP_KERNELS, before):
+            f.launches = n
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+
+    def __call__(self) -> None:
+        self.graph.replay()
+        for f, n in zip(STEP_KERNELS, self.launches):
+            f.launches += n
+
+
+def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
+             binary: bool, l2: float, n_losses: int, capture: bool):
+    """A fit's set-up: the padded rows ``arrays`` (u8 windows ``[P, k]``,
+    fp32 labels and mask, ``P`` a multiple of ``batch_size``) uploaded
+    once per distinct device, one replica of ``params`` a device, K5's
+    state, static epoch buffers (each replica's slice of every global
+    batch) and a device loss buffer of ``n_losses``. Returns ``(replicas,
+    losses, fill, run)``: ``fill(order)`` gathers an epoch's rows in the
+    order ``order`` (a device tensor) into the epoch buffers, ``run()``
+    takes one step (:func:`_step_fn`), a replay of its captured graph
+    (:class:`CapturedStep`) on one CUDA device unless ``capture`` is
+    False. Nothing here waits for the device once set up."""
+    n_shards = len(devices)
+    n_batches = arrays[0].shape[0] // batch_size
+    rows = batch_size // n_shards
+    replicas = [TrainableHead.from_params(params).to(d) for d in devices]
+    opt = Adam(replicas[0], learning_rate)
+    data = dict(zip(devices, per_device(devices, lambda d: [
+        torch.from_numpy(a).to(d) for a in arrays])))
+    shard_bufs = [[torch.zeros((n_batches, rows, *a.shape[1:]),
+                               dtype=a.dtype, device=d) for a in data[d]]
+                  for d in devices]
+    dev = devices[0]
+    # each global batch's mask count: whole numbers, exact in fp32
+    counts = (None if n_shards == 1 else
+              torch.zeros(n_batches, dtype=torch.float32, device=dev))
+    losses = torch.zeros(n_losses, dtype=torch.float32, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def fill(order):
+        by_shard = order.view(n_batches, n_shards, rows)
+        for i, (d, bufs) in enumerate(zip(devices, shard_bufs)):
+            idx = by_shard[:, i].reshape(-1).to(d)
+            for src, dst in zip(data[d], bufs):
+                torch.index_select(src, 0, idx,
+                                   out=dst.view(-1, *src.shape[1:]))
+        if counts is not None:
+            torch.sum(data[dev][2].index_select(0, order).view(
+                n_batches, -1), 1, out=counts)
+
+    run = _step_fn(replicas, opt, shard_bufs, counts, losses, steps,
+                   binary, l2)
+    if n_shards == 1 and dev.type == "cuda" and capture:
+        run = CapturedStep(run, opt.state() + [losses, steps])
+    return replicas, losses, fill, run
+
+
+def _epoch_loop(orders, fill, run, n_batches: int) -> None:
+    """A fit's epochs: each epoch's order (a device tensor) gathers the
+    padded rows into the epoch buffers (``fill``), then ``run`` takes one
+    step a batch. Nothing here waits for the device (``chip_smoke.py``
+    runs a single-device fit's under ``torch.cuda.set_sync_debug_mode(
+    "error")``)."""
+    for order in orders:
+        fill(order)
+        for _ in range(n_batches):
+            run()
 
 
 def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
         epochs: int = 30, batch_size: int = 4096, learning_rate: float = 1e-3,
         seed: int = 0, params: dict = None, l2: float = 0.0,
-        verbose: bool = False, device="cuda", mesh=None) -> dict:
+        verbose: bool = False, device="cuda", mesh=None,
+        capture: bool = True) -> dict:
     """Fit the scoring head on ``windows u8[N, k]`` / ``labels f32[N]`` on
     ``device`` (CUDA by default; ``"cpu"`` runs every kernel's plain
     version). Binary labels train with sigmoid cross-entropy, any other
@@ -131,11 +286,16 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
     sort by. Returns the trained weights, a dict of fp32 numpy arrays ready
     for ``save_params`` / ``load_params``.
 
+    On a CUDA device each step is a replay of one captured CUDA graph
+    (module docstring); ``capture=False`` runs the same step eagerly there,
+    with the same result bit for bit. On the CPU the step runs eagerly.
+
     ``mesh``, a tuple of ``torch.device``s (``parallel.mesh.make_mesh``,
     or one device repeated), trains data-parallel over it in place of
-    ``device``: the batch size rounds up to a multiple of the mesh size and
-    each device takes its slice of every global batch (module docstring);
-    the trajectory is the single-device one up to float reassociation."""
+    ``device``, its steps run eagerly: the batch size rounds up to a
+    multiple of the mesh size and each device takes its slice of every global batch
+    (module docstring); the trajectory is the single-device one up to float
+    reassociation."""
     devices = (as_mesh(mesh) if mesh is not None
                else (torch.device(device),))
     if (any(d.type == "cuda" for d in devices)
@@ -158,9 +318,9 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
         raise ValueError("labels must be f32[N] aligned with windows")
     if params is None:
         params = init_params(k, seed=seed)
-    head = TrainableHead.from_params(params)
-    if head.k != k:
-        raise ValueError(f"the head scores {head.k}-mers, not {k}-mers")
+    _names, head_k = head_shape(params)
+    if head_k != k:
+        raise ValueError(f"the head scores {head_k}-mers, not {k}-mers")
     binary = bool(np.isin(labels, (0.0, 1.0)).all())
 
     n_shards = len(devices)
@@ -178,36 +338,14 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
     mask_p = np.zeros(padded, np.float32)
     mask_p[:n] = 1.0
 
-    replicas = [head.to(devices[0])] + [
-        TrainableHead.from_params(params).to(d) for d in devices[1:]
-    ]
-    opt = torch.optim.Adam(replicas[0].parameters(), lr=learning_rate)
-    # the data once per distinct device
-    data = dict(zip(devices, per_device(devices, lambda d: [
-        torch.from_numpy(a).to(d) for a in (win_p, lab_p, mask_p)
-    ])))
-    rows = batch_size // n_shards
-    losses = torch.empty((epochs, n_batches), dtype=torch.float32,
-                         device=devices[0])
-    for e, order in enumerate(
-            _epoch_orders(seed, padded, epochs, devices[0])):
-        order = order.view(n_batches, n_shards, rows)
-        # each global batch's mask count: whole numbers, exact in fp32
-        counts = data[devices[0]][2][order].sum((1, 2))
-        shards = []
-        for i, d in enumerate(devices):
-            wd, yd, md = data[d]
-            idx = order[:, i].to(d)
-            shards.append((wd[idx], yd[idx], md[idx], counts.to(d)))
-        for b in range(n_batches):
-            losses[e, b] = train_step(
-                replicas, opt,
-                [(w[b], y[b], m[b], c[b]) for w, y, m, c in shards],
-                binary, l2,
-            )
+    replicas, losses, fill, run = _trainer(
+        (win_p, lab_p, mask_p), params, devices, batch_size, learning_rate,
+        binary, l2, epochs * n_batches, capture)
+    _epoch_loop(_epoch_orders(seed, padded, epochs, devices[0]), fill, run,
+                n_batches)
     out = replicas[0].to_params()
     if verbose:
-        for e, row in enumerate(losses.cpu().numpy()):
+        for e, row in enumerate(losses.view(epochs, n_batches).cpu().numpy()):
             print(f"epoch {e + 1}/{epochs}: loss {row.mean():.5f}")
     return {name: out[name] for name in sorted(out)}
 

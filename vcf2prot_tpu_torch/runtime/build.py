@@ -40,8 +40,10 @@ LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # C entry points: every pointer and the stream as c_void_p (a plain int
-# would be cut to 32 bits), every size as int64; each returns cudaError_t
+# would be cut to 32 bits), every size as int64, every fp32 constant as
+# c_float; each returns cudaError_t
 SIGNATURES = {
     "v2p_segmented_copy_i32": (_P, _P, _P, _I64, _I64, _P, _P),
     "v2p_segmented_copy_i64": (_P, _P, _P, _I64, _I64, _P, _P),
@@ -53,6 +55,7 @@ SIGNATURES = {
                                    _P, _P, _P),
     "v2p_window_layer1_grad_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,
                                    _P, _P, _P),
+    "v2p_adam": (_P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _LIB = None

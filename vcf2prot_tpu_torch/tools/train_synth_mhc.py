@@ -66,12 +66,13 @@ def train_config(windows, labels, n_train: int, hidden: int, depth: int,
 def write_tsv(path: str, n: int, epochs: int, device, rows) -> None:
     """The artifact's header and one row per ``(hidden, depth, AUC, oracle
     AUC, wall)``."""
+    steps = ("a captured step replayed" if torch.device(device).type
+             == "cuda" else "an eager loop of steps")
     with open(path, "w") as fh:
         fh.write(
             f"# synthetic MHC benchmark (downstream/synth_mhc.py): {n} "
             f"9-mers, anchor PWM + anchor-anchor epistasis, 5% label "
-            f"noise; fit = {epochs} epochs adam, a loop of steps on "
-            f"{device}\n")
+            f"noise; fit = {epochs} epochs adam, {steps} on {device}\n")
         fh.write(COLUMNS)
         for hidden, depth, a, ceiling, wall in rows:
             fh.write(f"H{hidden}x{depth}\t{hidden}\t{depth}\t{a:.4f}\t"

@@ -4,10 +4,10 @@
 A bound is the least time the card could take for a function: the larger
 of its compulsory bytes (each input read once, each output written once)
 over the device-memory rate, and its operations over the peak rate for
-their type (:func:`bound_ms`). The byte counts of the port's kernels and of
-the chain's stages live here, one function each, so ``chip_smoke.py`` and
-the A/B tools (``utils/kernel_ab.py``, ``utils/k4_ab.py``) read one
-yardstick.
+their type (:func:`bound_ms`). The byte counts of the port's kernels, of
+the chain's stages and of a training step live here, one function each,
+so ``chip_smoke.py`` and the A/B tools (``utils/kernel_ab.py``,
+``utils/k4_ab.py``) read one yardstick.
 
 The peaks are the H100 SXM5's published figures (NVIDIA H100 datasheet,
 SXM column; dense rates, no sparsity), the card ``nvidia-smi`` names
@@ -17,6 +17,8 @@ limit. They are constants: the port targets this one card, and nothing
 outside the code moves the yardstick a bound is read against.
 """
 from __future__ import annotations
+
+import numpy as np
 
 # device-memory rate, bytes/s
 PEAK_HBM_BPS = 3.35e12
@@ -145,3 +147,58 @@ def chain_stage_bytes(tape_bytes: int, n_tasks: int, index_bytes: int,
         "rank: 2 stable sorts + select + pack": (
             n_windows * 12 + row_bytes, 0),
     }
+
+
+def adam_bytes(n_params: int) -> int:
+    """K5's: p, g, mu and nu read and p, mu and nu written, 4 bytes each:
+    28 a parameter (the count's 8 bytes are left out)."""
+    return 28 * n_params
+
+
+def adam_ops(n_params: int) -> int:
+    """K5's fp32 operations: 7 for the moments, 5 for the update (3
+    divisions, a square root, an add), 2 to apply it; 14 a parameter."""
+    return 14 * n_params
+
+
+def train_step_costs(params: dict, rows: int) -> dict:
+    """``part -> (bytes, fp32 operations)`` of one training step of
+    ``rows`` windows with the head ``params`` (int64 positions, each
+    window's k bytes read once): K3, the later layers' products, their
+    gradients, K4 and K5. A product reads its bf16-valued input (2 bytes an
+    element) and its fp32 weight and writes its fp32 result; its gradient
+    reads the fp32 output gradient, the input and the weight and writes
+    the weight's and the input's fp32 gradients."""
+    from ..downstream.peptides import VOCAB
+    from ..downstream.scoring import layer_names
+
+    names = layer_names(params)
+    h1 = params[names[0]].shape[1]
+    k = params[names[0]].shape[0] // params["embed"].shape[1]
+    n_params = sum(int(np.size(v)) for v in params.values())
+    fwd = bwd = (0, 0)
+    for name in names[1:]:
+        n_in, n_out = params[name].shape
+        w_bytes = n_in * n_out * 4
+        fwd = (fwd[0] + rows * n_in * 2 + w_bytes + rows * n_out * 4,
+               fwd[1] + 2 * rows * n_in * n_out)
+        bwd = (bwd[0] + rows * n_out * 4 + rows * n_in * 2 + 2 * w_bytes
+               + rows * n_in * 4,
+               bwd[1] + 4 * rows * n_in * n_out)
+    return {
+        "K3": (scorer_bytes(rows, h1, 8, rows * k, k * VOCAB * h1),
+               scorer_ops(rows, k, h1)),
+        "products": fwd,
+        "products' gradients": bwd,
+        "K4": (scorer_grad_bytes(rows, k, h1, 8, rows * k),
+               scorer_ops(rows, k, h1)),
+        "K5": (adam_bytes(n_params), adam_ops(n_params)),
+    }
+
+
+def train_step_bound_ms(params: dict, rows: int) -> tuple:
+    """``(ms, "bytes" | "operations")`` of one training step: the sums of
+    :func:`train_step_costs` over the step's kernels, through
+    :func:`bound_ms`."""
+    costs = train_step_costs(params, rows).values()
+    return bound_ms(sum(b for b, _ in costs), sum(o for _, o in costs))
