@@ -11,8 +11,8 @@ failing the run with a non-zero exit:
    computed from (``vcf2prot_tpu_torch/utils/roofline.py``), torch / CUDA /
    nvcc / Triton;
 2. build: K1 (executor), K2 (validator), K3 (window scorer), K4 (its
-   gradient) and K5 (adam) through ``runtime/build.py``, one nvcc per
-   source, all started together;
+   gradient), K5 (adam) and K6 (a 1-deep head's tail) through
+   ``runtime/build.py``, one nvcc per source, all started together;
 3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
    the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
    and int64, with combined aligned and at an odd address; K2 count-equal
@@ -61,12 +61,32 @@ failing the run with a non-zero exit:
    than;
 8b. K5 (adam, run after phase 8) against its plain version on the card:
    the flat parameters of a 128x1 and a 512x3 head, 1,000,003 parameters
-   and the 128x1 size 4 bytes past 16-byte alignment, 3 steps each: p, mu
-   and nu bit-equal, the count advanced; at the heads' sizes its launches
-   in a CUDA graph (as the captured step runs them) and alone back to
-   back, its wrapper and its plain version timed beside its bound and
+   and the 128x1 size 4 bytes past 16-byte alignment, 3 steps each from a
+   fresh cache of bias corrections (the first step misses it, the later
+   ones hit it): p, mu and nu bit-equal, the count advanced; at the heads'
+   sizes K5's first
+   design (``chip_archive/adam_first.cu``) and the current one, each built
+   into a library of its own, bit-equal and their launches timed alone
+   back to back and in a CUDA graph (as the captured step runs them) in
+   the order A B B A (``utils/kernel_ab.py``'s ``ab_k5``; the kernels
+   line's ``ms`` and ``graph_ms`` are the current one's there), then its
+   wrapper and its plain version timed beside its bound and
    ``torch.optim.Adam(fused=True).step()`` on the same parameters (in a
    graph with ``capturable=True``, and eager);
+8c. K6 (the tail of a 1-deep head: the output product, the loss and its
+   gradient, forward and backward) against its plain version on the card:
+   the 8x1, 128x1 and 512x1 heads, 4,096, 4,095 (odd) and 2,048 rows (a dp
+   shard's, with the whole batch's count), binary and squared-error
+   labels, 37 rows masked: s, the loss, the count, dh1 and the gradients
+   added into w2's and b2's views bit-equal, two launches bit-equal, and
+   within rtol 1e-5 (loss), 1e-4 of the largest element (b2) and one
+   bf16 ulp of the largest element (w2 and dh1, both rounded to bf16) of
+   dense autograd through
+   ``later_layers`` and ``batch_loss``; at 128x1 and 4,096 binary rows
+   each launch timed alone back to back and in a CUDA graph, its wrapper
+   and its plain version, beside its bound, and both launches in a graph
+   against the torch ops they replace (``later_layers``, ``batch_loss``
+   and their autograd) captured in a graph;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -76,7 +96,8 @@ failing the run with a non-zero exit:
    ``torch.cuda.set_sync_debug_mode("error")``): holdout AUC within
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
    synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched once
-   a step (replays counted); fit walls;
+   a step (replays counted), K6 once forward and once backward a step on
+   the 1-deep heads and never on 512x3; fit walls;
 9b. step times: each head's captured step against its eager one
    (``capture=False``) by CUDA events, beside the step's bound; for the
    128x1 and 512x3 heads the host calls, device kernels and device busy
@@ -133,14 +154,16 @@ kernels; it says nothing of multi-GPU scaling, and real multi-GPU and
 multi-node runs stay unverified.
 
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is the kernels' JSON summary, K1-K5 (launches
+The line before the last is the kernels' JSON summary, K1-K6 (launches
 summed over the paths, a captured step's counted at each replay; ``ms``
 each kernel's launches alone and ``wrapper_ms`` its wrapper's, back to
 back; each kernel's bound from
 ``vcf2prot_tpu_torch/utils/roofline.py``, and its yardstick's time as
 ``library_ms`` and ``one_call_ms``, null where no one call computes the
-same; K5 also in a CUDA graph, ``graph_ms``, beside ``library_graph_ms``,
-torch's fused adam captured, null for K1-K4); the last
+same; K5 and K6 also in a CUDA graph, ``graph_ms``, K5 beside
+``library_graph_ms``, torch's fused adam captured, and its first design's
+``earlier_ms`` / ``earlier_graph_ms``, K6 beside ``replaced_graph_ms``, the
+torch ops it replaces captured, null where they do not apply); the last
 line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
 package ``vcf2prot_tpu``.
 """
@@ -233,6 +256,13 @@ DP_SEEDS = (0, 1, 2, 3, 4)
 DP_TOL = {"128x1": 5e-3, "512x3": 1e-2}
 # K5's odd size (not a multiple of 4) and its steps a case (phase 8b)
 K5_ODD, K5_STEPS = 1_000_003, 3
+# K5's first design, timed beside the current one (phase 8b)
+K5_EARLIER = os.path.join(ROOT, "chip_archive", "adam_first.cu")
+# K6's heads (the 1-deep heads of phase 9), its row counts (a batch, an odd
+# one, a dp shard's of two) and its masked rows (phase 8c)
+K6_HEADS = ("8x1", "128x1", "512x1")
+K6_ROWS = (4096, 4095, 2048)
+K6_PAD = 37
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
 # seconds a multi-host child may take (phase 16)
@@ -1460,10 +1490,12 @@ def phase_k5(card):
     """8b: K5 against its plain version on the card: the flat parameters
     of a 128x1 and a 512x3 head, K5_ODD parameters and the 128x1 size one
     element past 16-byte alignment, K5_STEPS steps each from count 5:
-    bit-equal, the count advanced by each. At the heads' sizes: its
-    launches alone back to back (``ms``, as K1-K4 are timed) and in a CUDA
-    graph (``graph_ms``, the device's time as the captured step runs it),
-    its wrapper and its plain version, beside its bound and
+    bit-equal, the count advanced by each. At the heads' sizes, K5's first
+    design and the current one, A B B A in one call (``utils/kernel_ab.py``):
+    their launches alone back to back (``ms`` and ``earlier_ms``, as K1-K4
+    are timed) and in a CUDA graph (``graph_ms`` and ``earlier_graph_ms``,
+    the device's time as the captured step runs it); then its wrapper and
+    its plain version, beside its bound and
     ``torch.optim.Adam(fused=True).step()`` on the same parameters
     (optax's update up to its rounding order), eager (``library_ms``) and,
     with ``capturable=True``, in a graph (``library_graph_ms``). Returns
@@ -1476,7 +1508,6 @@ def phase_k5(card):
         TrainableHead,
         init_params,
     )
-    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
     from vcf2prot_tpu_torch.utils import roofline
 
     rng = np.random.default_rng(17)
@@ -1500,12 +1531,14 @@ def phase_k5(card):
         want = [t.clone() for t in got]
         counts = [torch.tensor([5, 0], dtype=torch.int32, device=DEV)
                   for _ in range(2)]
+        # a fresh cache: the first step misses it, the later ones hit it
+        powers = torch.zeros(ad.POWERS, dtype=torch.int32, device=DEV)
         before = ad.adam_update.launches
         for _ in range(K5_STEPS):
             g = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(
                 -6, 1, n)).astype(np.float32)).to(DEV)
             p, mu, nu = got
-            ad.adam_update(p, g, mu, nu, counts[0], lr)
+            ad.adam_update(p, g, mu, nu, counts[0], lr, powers)
             p, mu, nu = want
             ad.adam_update_reference(p, g, mu, nu, counts[1], lr)
         torch.cuda.synchronize()
@@ -1518,25 +1551,35 @@ def phase_k5(card):
               f"K5 {what}: count {counts[0].tolist()}, plain "
               f"{counts[1].tolist()}")
     print(f"K5 vs plain on {card}: {len(cases)} cases ({', '.join(c[0] for c in cases)}; "
-          f"{K5_STEPS} steps each): p, mu and nu bit-equal, the count "
-          f"advanced {K5_STEPS} times")
+          f"{K5_STEPS} steps each, the first missing K5's cache of bias "
+          f"corrections, the later hitting it): p, mu and nu bit-equal, the "
+          f"count advanced {K5_STEPS} times")
 
-    lib = load_kernels()
-    k = ad._consts(lr)
+    # the first design against the current one, in one call: both sides'
+    # launches timed alike, alone and in a CUDA graph
+    from vcf2prot_tpu_torch.utils import kernel_ab
+
+    paths = [K5_EARLIER, os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                                      "adam.cu")]
+    names = [os.path.relpath(path, ROOT) for path in paths]
+    with tempfile.TemporaryDirectory(prefix="k5_ab_") as outdir:
+        fns = kernel_ab.build_all(paths, "v2p_adam", outdir)
+        bad, ab = kernel_ab.ab_k5(names, fns, lr)
+    check(bad == 0, "K5: a version of the A/B differs from the plain "
+                    "version")
+    check(sorted(ab) == sorted(heads), f"K5: the A/B timed {sorted(ab)}")
+
     measured = {}
     for name, head in heads.items():
         n = sizes[name]
+        old, new = (ab[name][path] for path in names)
+        ms, graph = (statistics.median(new[key]) for key in ("ms", "graph_ms"))
         p, mu, nu = arrays(n, 0)
         g = torch.randn(n, device=DEV) * 1e-3
         count = torch.zeros(2, dtype=torch.int32, device=DEV)
-        args = (p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-                count.data_ptr(), n, k["neg_lr"], k["b1"], k["omb1"],
-                k["b2"], k["omb2"], k["eps"])
-        # inside a graph, as the captured step runs it: the device's time
-        graph = _graph_ms(lambda: check_launch(lib.v2p_adam(
-            *args, torch.cuda.current_stream().cuda_stream), "K5"))
-        ms = _launch_ms(lib.v2p_adam, args, "K5")
-        wrapper, _ = _cuda_ms(lambda: ad.adam_update(p, g, mu, nu, count, lr),
+        powers = torch.zeros(ad.POWERS, dtype=torch.int32, device=DEV)
+        wrapper, _ = _cuda_ms(lambda: ad.adam_update(p, g, mu, nu, count, lr,
+                                                     powers),
                               inner=BACK_TO_BACK)
         plain, _ = _cuda_ms(lambda: ad.adam_update_reference(
             p, g, mu, nu, count, lr), inner=BACK_TO_BACK)
@@ -1548,20 +1591,237 @@ def phase_k5(card):
         library_graph = _graph_ms(fused.step)
         bound, by = roofline.bound_ms(roofline.adam_bytes(n),
                                       roofline.adam_ops(n))
-        measured[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                              bound_ms=bound, bound_by=by,
-                              library_ms=library, wrapper_ms=wrapper,
-                              graph_ms=graph, library_graph_ms=library_graph)
-        print(f"K5 {name} ({n} parameters) on {card}: launched alone back "
-              f"to back {ms:.4f} ms ({roofline.adam_bytes(n) / ms / 1e6:.1f} "
-              f"GB/s; {100 * bound / ms:.1f}% of the {bound:.6f} ms bound by "
-              f"{by}), in a CUDA graph {graph:.4f} ms a launch "
-              f"({100 * bound / graph:.1f}%), wrapper {wrapper:.4f} ms, plain "
-              f"{plain:.4f} ms; torch.optim.Adam(fused=True).step() "
-              f"{library:.4f} ms, with capturable=True in a CUDA graph "
-              f"{library_graph:.4f} ms")
-        del p, mu, nu, g, count, fused
+        measured[name] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=library, wrapper_ms=wrapper,
+            graph_ms=graph, library_graph_ms=library_graph,
+            earlier_ms=statistics.median(old["ms"]),
+            earlier_graph_ms=statistics.median(old["graph_ms"]))
+        print(f"K5 {name} ({n} parameters) on {card}, A B B A in one call "
+              f"(median of each version's two): launched alone back to back "
+              f"{ms:.4f} ms ({roofline.adam_bytes(n) / ms / 1e6:.1f} GB/s; "
+              f"{100 * bound / ms:.1f}% of the {bound:.6f} ms bound by {by}), "
+              f"in a CUDA graph {graph:.4f} ms a launch "
+              f"({100 * bound / graph:.1f}%); first design "
+              f"{measured[name]['earlier_ms']:.4f} / "
+              f"{measured[name]['earlier_graph_ms']:.4f} ms; wrapper "
+              f"{wrapper:.4f} ms, plain {plain:.4f} ms; "
+              f"torch.optim.Adam(fused=True).step() {library:.4f} ms, with "
+              f"capturable=True in a CUDA graph {library_graph:.4f} ms")
+        del p, mu, nu, g, count, powers, fused
     del heads
+    torch.cuda.empty_cache()
+    return measured
+
+
+def _k6_case(head, h1, binary, rows, count, rng):
+    """One K6 case on the card: labels, a mask with K6_PAD rows at the end
+    and an incoming loss gradient, the kernel's forward and backward twice
+    and the plain versions once on the same inputs; returns the inputs and
+    the kernel's results."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import head_tail as ht
+
+    h_dim = h1.shape[1]
+    if binary:
+        y = (rng.random(rows) < 0.3).astype(np.float32)
+    else:
+        y = rng.normal(0.5, 1.0, rows).astype(np.float32)
+    m = np.ones(rows, np.float32)
+    m[rows - K6_PAD:] = 0.0
+    y, m = (torch.from_numpy(a).to(DEV) for a in (y, m))
+    g_loss = torch.tensor(0.75, device=DEV)
+    w2, b2 = head.w2.detach(), head.b2.detach()
+    ticket = torch.zeros(1, dtype=torch.int32, device=DEV)
+    runs = []
+    for _ in range(2):
+        s, loss, cnt = ht.head_tail_forward(h1, w2, b2, y, m, count, binary,
+                                            ticket)
+        gw2 = torch.zeros(h_dim, device=DEV)
+        gb2 = torch.zeros(1, device=DEV)
+        dh1 = ht.head_tail_backward(h1, w2, y, m, s, cnt, g_loss, binary,
+                                    gw2, gb2, ticket)
+        runs.append((s, loss, cnt, dh1, gw2, gb2))
+    s, loss, cnt = ht.head_tail_forward_reference(h1, w2, b2, y, m, count,
+                                                  binary)
+    gw2, gb2 = torch.zeros(h_dim, device=DEV), torch.zeros(1, device=DEV)
+    dh1 = ht.head_tail_backward_reference(h1, w2, y, m, s, cnt, g_loss,
+                                          binary, gw2, gb2)
+    torch.cuda.synchronize()
+    check(ticket.item() == 0, "K6: the ticket was not returned to 0")
+    return (y, m, g_loss, ticket), runs, (s, loss, cnt, dh1, gw2, gb2)
+
+
+def phase_k6(card):
+    """8c: K6 against its plain version on the card (module docstring);
+    returns its numbers, forward and backward, at 128x1 and 4,096 binary
+    rows."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import head_tail as ht
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        TrainableHead,
+        init_params,
+        later_layers,
+    )
+    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
+    from vcf2prot_tpu_torch.utils import roofline
+
+    rng = np.random.default_rng(23)
+    alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
+    outputs = ("s", "loss", "cnt", "dh1", "gw2", "gb2")
+    worst = {}
+    n_cases = 0
+    measured = {}
+    for name in K6_HEADS:
+        head = TrainableHead.from_params(
+            init_params(NEO_K, seed=1, **TRAIN_HEADS[name])).to(DEV)
+        for rows in K6_ROWS:
+            win = torch.from_numpy(
+                alphabet[rng.integers(0, len(alphabet), (rows, NEO_K))]
+            ).to(DEV)
+            with torch.no_grad():
+                h1 = head._layer1(win)
+            # a dp shard's rows divide by the whole batch's count
+            count = (torch.tensor(2.0 * rows - K6_PAD, device=DEV)
+                     if rows == K6_ROWS[2] else None)
+            for binary in (True, False):
+                what = (f"K6 {name} {rows} rows "
+                        f"{'binary' if binary else 'squared error'}"
+                        + (" (whole-batch count)" if count is not None
+                           else ""))
+                inputs, runs, plain = _k6_case(head, h1, binary, rows, count,
+                                               rng)
+                n_cases += 1
+                for key, a, b, c in zip(outputs, *runs, plain):
+                    check(torch.equal(a, b), f"{what}: two launches differ "
+                                             f"in {key}")
+                    check(torch.equal(a, c), f"{what}: {key} differs from "
+                          f"the plain version (max |d| "
+                          f"{float((a.float() - c.float()).abs().max())})")
+                    check(bool(torch.isfinite(a.float()).all()),
+                          f"{what}: {key} not finite")
+                # the arithmetic against dense autograd of the torch ops
+                y, m, g_loss, _ticket = inputs
+                h1l = h1.clone().requires_grad_()
+                w2l = head.w2.detach().clone().requires_grad_()
+                b2l = head.b2.detach().clone().requires_grad_()
+                loss = ht.batch_loss(later_layers(h1l, [(
+                    w2l.to(torch.bfloat16).float(), b2l)]), y, m, binary,
+                    count)
+                dh1, dw2, db2 = torch.autograd.grad(loss, (h1l, w2l, b2l),
+                                                    g_loss)
+                got = runs[0]
+                errs = {
+                    "loss": (float((got[1] - loss).abs()),
+                             1e-5 * float(loss.abs())),
+                    "dh1": (float((got[3].float() - dh1.float()).abs().max()),
+                            2.0 ** -7 * float(dh1.float().abs().max())),
+                    # both rounded to bf16: a sum an ulp apart may round
+                    # one bf16 ulp apart
+                    "w2": (float((got[4] - dw2.view(-1)).abs().max()),
+                           2.0 ** -8 * float(dw2.abs().max())),
+                    "b2": (float((got[5] - db2).abs().max()),
+                           1e-4 * float(db2.abs().max())),
+                }
+                for key, (err, tol) in errs.items():
+                    check(err <= tol, f"{what}: {key} lies {err} from dense "
+                          f"autograd, over {tol}")
+                    worst[key] = max(worst.get(key, 0.0), err / max(tol,
+                                                                    1e-30))
+        del head
+    print(f"K6 vs plain on {card}: {n_cases} cases (heads "
+          f"{', '.join(K6_HEADS)} x rows {K6_ROWS} x binary / squared "
+          f"error, {K6_PAD} rows masked): s, loss, count, dh1 and the w2 / "
+          f"b2 gradients bit-equal to the plain version, two launches "
+          f"bit-equal; against dense autograd of later_layers + batch_loss "
+          f"at most " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          + " of its tolerance")
+
+    # timing: 128x1, a training batch of binary rows
+    rows, h_dim = K6_ROWS[0], TRAIN_HEADS["128x1"]["hidden"]
+    head = TrainableHead.from_params(
+        init_params(NEO_K, seed=1, **TRAIN_HEADS["128x1"])).to(DEV)
+    win = torch.from_numpy(
+        alphabet[rng.integers(0, len(alphabet), (rows, NEO_K))]).to(DEV)
+    with torch.no_grad():
+        h1 = head._layer1(win)
+    (y, m, g_loss, ticket), runs, _plain = _k6_case(head, h1, True, rows,
+                                                    None, rng)
+    s, loss, cnt, dh1, gw2, gb2 = runs[0]
+    w2, b2 = head.w2.detach(), head.b2.detach()
+    lib = load_kernels()
+    part_f = torch.empty(2 * ht.tiles(rows), device=DEV)
+    part_b = torch.empty(ht.tiles(rows) * (h_dim + 1), device=DEV)
+    fwd_args = (h1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                m.data_ptr(), None, rows, h_dim, 1, part_f.data_ptr(),
+                s.data_ptr(), loss.data_ptr(), cnt.data_ptr(),
+                ticket.data_ptr())
+    bwd_args = (h1.data_ptr(), w2.data_ptr(), y.data_ptr(), m.data_ptr(),
+                s.data_ptr(), cnt.data_ptr(), g_loss.data_ptr(), rows, h_dim,
+                1, part_b.data_ptr(), dh1.data_ptr(), gw2.data_ptr(),
+                gb2.data_ptr(), ticket.data_ptr())
+    entries = {"forward": (lib.v2p_head_tail_fwd, fwd_args),
+               "backward": (lib.v2p_head_tail_bwd, bwd_args)}
+
+    def graphed(fn, args, what):
+        return _graph_ms(lambda: check_launch(
+            fn(*args, torch.cuda.current_stream().cuda_stream), what))
+
+    def pair():
+        for fn, args in entries.values():
+            check_launch(fn(*args, torch.cuda.current_stream().cuda_stream),
+                         "K6")
+
+    wrappers = {
+        "forward": lambda: ht.head_tail_forward(h1, w2, b2, y, m, None, True,
+                                                ticket),
+        "backward": lambda: ht.head_tail_backward(
+            h1, w2, y, m, s, cnt, g_loss, True, gw2, gb2, ticket)}
+    plains = {
+        "forward": lambda: ht.head_tail_forward_reference(h1, w2, b2, y, m,
+                                                          None, True),
+        "backward": lambda: ht.head_tail_backward_reference(
+            h1, w2, y, m, s, cnt, g_loss, True, gw2, gb2)}
+    h1l = h1.clone().requires_grad_()
+    w2l = head.w2.detach().clone().requires_grad_()
+    b2l = head.b2.detach().clone().requires_grad_()
+
+    def replaced():
+        """The torch ops K6 replaces: the output product, the loss and
+        their autograd back to h1, w2 and b2."""
+        out = ht.batch_loss(later_layers(h1l, [(
+            w2l.to(torch.bfloat16).float(), b2l)]), y, m, True)
+        return torch.autograd.grad(out, (h1l, w2l, b2l))
+
+    replaced_ms, _ = _cuda_ms(replaced, inner=BACK_TO_BACK)
+    replaced_graph = _graph_ms(replaced)
+    pair_graph = _graph_ms(pair)
+    for part, (fn, args) in entries.items():
+        ms = _launch_ms(fn, args, f"K6 {part}")
+        graph = graphed(fn, args, f"K6 {part}")
+        wrapper, _ = _cuda_ms(wrappers[part], inner=BACK_TO_BACK)
+        plain, _ = _cuda_ms(plains[part], inner=BACK_TO_BACK)
+        bound, by = roofline.head_tail_bound_ms(rows, h_dim, part)
+        measured[part] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=None, wrapper_ms=wrapper, graph_ms=graph,
+            replaced_ms=replaced_ms, replaced_graph_ms=replaced_graph,
+            pair_graph_ms=pair_graph)
+        print(f"K6 {part}, 128x1, {rows} binary rows on {card}: launched "
+              f"alone back to back {ms:.4f} ms, in a CUDA graph {graph:.4f} "
+              f"ms ({100 * bound / graph:.1f}% of the {bound:.6f} ms bound "
+              f"by {by}), wrapper {wrapper:.4f} ms, plain {plain:.4f} ms")
+    bound, by = roofline.head_tail_bound_ms(rows, h_dim)
+    print(f"K6 forward + backward, 128x1, {rows} binary rows on {card}: in "
+          f"a CUDA graph {pair_graph:.4f} ms ({100 * bound / pair_graph:.1f}% "
+          f"of the {bound:.6f} ms bound by {by}); the torch ops they replace "
+          f"(later_layers, batch_loss, their autograd) {replaced_graph:.4f} "
+          f"ms in a CUDA graph, {replaced_ms:.4f} ms eager")
+    del head, h1, h1l
     torch.cuda.empty_cache()
     return measured
 
@@ -1605,6 +1865,10 @@ def phase_train(card):
     and the path's K3, K4 and K5 launches (replays counted)."""
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.adam import adam_update
+    from vcf2prot_tpu_torch.downstream.head_tail import (
+        head_tail_backward,
+        head_tail_forward,
+    )
     from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream.scoring import (
         window_layer1,
@@ -1622,11 +1886,18 @@ def phase_train(card):
               batch_size=MHC_BATCH, device=DEV)
     window_layer1.launches = window_layer1_backward.launches = 0
     adam_update.launches = 0
-    aucs, trained = {}, {}
+    aucs, trained, k6 = {}, {}, {}
     for name, shape in TRAIN_HEADS.items():
+        head_tail_forward.launches = head_tail_backward.launches = 0
         with epoch_loop_watch():
             trained[name], aucs[name], wall = mhc.train_config(
                 win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
+        k6[name] = (head_tail_forward.launches, head_tail_backward.launches)
+        # K6 once each way a step on a 1-deep head, never on a deeper one
+        want = ((steps + train.CAPTURE_WARMUP,) * 2 if shape["depth"] == 1
+                else (0, 0))
+        check(k6[name] == want, f"{name}: K6 launched {k6[name]} times "
+              f"(forward, backward), not {want}")
         print(f"train {name} on {card}: holdout AUC {aucs[name]:.4f} "
               f"(JAX package's artifact {artifact[name]:.4f}, oracle "
               f"ceiling {ceiling:.4f}); fit wall {wall:.3f} s for {steps} "
@@ -1638,7 +1909,11 @@ def phase_train(card):
               f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
     launches = {"window_layer1": window_layer1.launches,
                 "window_layer1_backward": window_layer1_backward.launches,
-                "adam_update": adam_update.launches}
+                "adam_update": adam_update.launches,
+                "head_tail_forward": sum(f for f, _b in k6.values()),
+                "head_tail_backward": sum(b for _f, b in k6.values())}
+    print(f"K6 launches by head (forward, backward; {steps} steps and "
+          f"{train.CAPTURE_WARMUP} warm-up steps a fit): {k6}")
     # each fit: CAPTURE_WARMUP steps, then one replay a step (K3 also
     # scores each holdout)
     want = len(TRAIN_HEADS) * (steps + train.CAPTURE_WARMUP)
@@ -1728,11 +2003,11 @@ def _fit_profile(win, labels, n_tr, shape, capture):
     return sum(calls.values()), kernels / steps, busy / steps, calls
 
 
-def phase_step_times(card, k4):
+def phase_step_times(card, k4, k6):
     """9b: the captured step against the eager one (``capture=False``):
-    device time a step, host calls and device kernels a step, the share of
-    K4, then phase 9's fits captured against eager, A B B A, with their
-    weights bit-equal; beside each head's bound from
+    device time a step, host calls and device kernels a step, the shares of
+    K4 and (128x1) K6, then phase 9's fits captured against eager, A B B A,
+    with their weights bit-equal; beside each head's bound from
     ``utils/roofline.py``."""
     import numpy as np
 
@@ -1750,6 +2025,7 @@ def phase_step_times(card, k4):
           f"back to back; captured / eager ms): " + "; ".join(
               f"{n} {v['captured']:.4f} / {v['eager']:.4f}"
               for n, v in step.items()))
+    k6_ms = k6["forward"]["pair_graph_ms"]
     for name in HEADS:
         params = init_params(NEO_K, seed=0, **HEADS[name])
         bound, by = roofline.train_step_bound_ms(params, MHC_BATCH)
@@ -1759,7 +2035,9 @@ def phase_step_times(card, k4):
               f"K5); captured step {100 * bound / step[name]['captured']:.1f}% "
               f"of it; K4 {k4_ms:.4f} ms, "
               f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
-              f"step")
+              f"step" + ("" if name != "128x1" else
+                         f"; K6 both ways in a graph {k6_ms:.4f} ms, "
+                         f"{100 * k6_ms / step[name]['captured']:.1f}%"))
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     for name in CAPTURE_HEADS:
         shape = TRAIN_HEADS[name]
@@ -2071,6 +2349,10 @@ def phase_dp_train(card):
     import torch
 
     from vcf2prot_tpu_torch.downstream.adam import adam_update
+    from vcf2prot_tpu_torch.downstream.head_tail import (
+        head_tail_backward,
+        head_tail_forward,
+    )
     from vcf2prot_tpu_torch.downstream.scoring import init_params
     from vcf2prot_tpu_torch.downstream.synth_mhc import oracle_auc
     from vcf2prot_tpu_torch.downstream import train
@@ -2089,6 +2371,7 @@ def phase_dp_train(card):
     steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
     window_layer1.launches = window_layer1_backward.launches = 0
     adam_update.launches = 0
+    head_tail_forward.launches = head_tail_backward.launches = 0
     for name in DP_HEADS:
         t0 = time.perf_counter()
         params = train.fit(
@@ -2110,7 +2393,9 @@ def phase_dp_train(card):
               f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
     launches = {"window_layer1": window_layer1.launches,
                 "window_layer1_backward": window_layer1_backward.launches,
-                "adam_update": adam_update.launches}
+                "adam_update": adam_update.launches,
+                "head_tail_forward": head_tail_forward.launches,
+                "head_tail_backward": head_tail_backward.launches}
     check(all(launches.values()), f"a kernel of the dp fit never ran: "
                                   f"{launches}")
     for name in DP_HEADS:
@@ -2266,6 +2551,9 @@ def main():
         k4 = phase_k4(card)
         measured["window_layer1_backward"] = k4[("128x1", K4_ROWS[0])]
         measured["adam_update"] = phase_k5(card)["128x1"]
+        k6 = phase_k6(card)
+        measured["head_tail_forward"] = k6["forward"]
+        measured["head_tail_backward"] = k6["backward"]
         fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
                                       pairs=False)
         neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
@@ -2303,7 +2591,7 @@ def main():
         trained, paths["training"] = phase_train(card)
         check(all(paths["training"].values()),
               f"a kernel of the training path never ran: {paths['training']}")
-        phase_step_times(card, k4)
+        phase_step_times(card, k4, k6)
         phase_serve_trained(card, workdir, *small, trained["512x3"])
         phase_train_checks(card)
         paths["dp training"] = phase_dp_train(card)
@@ -2318,6 +2606,10 @@ def main():
                                    "vcf2prot_tpu/downstream/train.py:157"),
         "adam_update": ("vcf2prot_tpu_torch/csrc/adam.cu",
                         "vcf2prot_tpu/downstream/train.py:164"),
+        "head_tail_forward": ("vcf2prot_tpu_torch/csrc/head_tail.cu",
+                              "vcf2prot_tpu/downstream/train.py:109"),
+        "head_tail_backward": ("vcf2prot_tpu_torch/csrc/head_tail.cu",
+                               "vcf2prot_tpu/downstream/train.py:157"),
     }
     launches = dict.fromkeys(meta, 0)
     for counts in paths.values():
@@ -2332,7 +2624,9 @@ def main():
           "the JAX package vcf2prot_tpu was imported")
     print("vcf2prot_tpu imported: False")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "wrapper_ms", "graph_ms", "library_graph_ms")
+            "library_ms", "wrapper_ms", "graph_ms", "library_graph_ms",
+            "earlier_ms", "earlier_graph_ms", "replaced_ms",
+            "replaced_graph_ms", "pair_graph_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -208,6 +208,13 @@ def test_adam_update_checks_its_arguments():
         adam_update(*meta, LR)
     with pytest.raises(ValueError, match="share a device"):
         adam_update(*good[:4], good[4].to("meta"), LR)
+    # K5's cache of bias corrections: int32 [POWERS] on the parameters'
+    # device
+    for bad in (torch.zeros(adam_mod.POWERS),
+                torch.zeros(adam_mod.POWERS - 1, dtype=torch.int32),
+                torch.zeros(adam_mod.POWERS, dtype=torch.int32).to("meta")):
+        with pytest.raises(TypeError, match="powers"):
+            adam_update(*good, LR, bad)
 
 
 def test_adam_state_starts_as_optax_init_and_steps_the_head():
@@ -219,6 +226,9 @@ def test_adam_state_starts_as_optax_init_and_steps_the_head():
     assert not opt.mu.any() and not opt.nu.any()
     assert opt.mu.shape == opt.nu.shape == head.flat.shape
     assert opt.state()[0] is head.flat
+    # K5's cache is no part of optax's state: zeros, never in state()
+    assert opt.powers.shape == (adam_mod.POWERS,) and not opt.powers.any()
+    assert all(t is not opt.powers for t in opt.state())
     rng = np.random.default_rng(8)
     g = flat(gradients(rng, params))
     head.flat_grad.copy_(g)

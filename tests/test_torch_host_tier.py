@@ -14,6 +14,35 @@ from genvcf import random_cohort, write_fasta, write_synthetic_vcf
 JAX_PKG, PORT_PKG = "vcf2prot_tpu", "vcf2prot_tpu_torch"
 
 
+NATIVE_SO = "native/build/vcf2prot_native.so"
+
+
+def retry_reference_native(monkeypatch):
+    """The JAX package's native module, loaded again if this process lost
+    it. Its bridge builds ``native/build/vcf2prot_native.so`` in place,
+    with no lock, and remembers a failed load for the life of the process
+    (``_NATIVE_TRIED``): a worker that imported it while another worker's
+    linker was still writing the file keeps None. By the time a case runs,
+    collection's racing builds are over, so the cached failure is cleared
+    (through ``monkeypatch``, restored after) and the module loaded once
+    more; if it is still absent, the case fails, naming the file."""
+    from vcf2prot_tpu import native_bridge as jax_bridge
+
+    if jax_bridge.load_native() is None:
+        monkeypatch.setattr(jax_bridge, "_NATIVE_TRIED", False)
+        monkeypatch.setattr(jax_bridge, "_NATIVE", None)
+        if jax_bridge.load_native() is None:
+            pytest.fail(f"the JAX package's native module ({NATIVE_SO}) "
+                        "did not load: its native cases cannot be compared")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    with pytest.MonkeyPatch.context() as mp:
+        retry_reference_native(mp)
+        yield
+
+
 @pytest.fixture(scope="module")
 def cohort(tmp_path_factory):
     root = tmp_path_factory.mktemp("host_tier")
@@ -257,3 +286,24 @@ def test_the_two_bridges_compile_the_same_programs(cohort):
     assert port_bridge.library_path().startswith(port_bridge.BUILD_DIR)
     assert canon(port) == canon(ref)
     assert all(p.pooled for p in port[1])
+
+
+def test_a_lost_native_build_is_loaded_again(cohort, tmp_path, monkeypatch):
+    """The race of the JAX package's on-demand build, planted: its bridge
+    holds a cached failure (``_NATIVE_TRIED`` set, ``_NATIVE`` None), as in
+    a worker that lost the race at collection. The retry loads the module
+    again, and a native case matches the port's."""
+    from vcf2prot_tpu import native_bridge as jax_bridge
+
+    monkeypatch.setattr(jax_bridge, "_NATIVE_TRIED", True)
+    monkeypatch.setattr(jax_bridge, "_NATIVE", None)
+    assert jax_bridge.load_native() is None
+    retry_reference_native(monkeypatch)
+    assert jax_bridge.load_native() is not None
+    vcf, fasta = cohort
+    got = {}
+    for pkg in (JAX_PKG, PORT_PKG):
+        got[pkg] = canon(case_compile_native(pkg, vcf, fasta,
+                                             str(tmp_path)))
+    assert got[JAX_PKG] is not None
+    assert got[PORT_PKG] == got[JAX_PKG]

@@ -24,11 +24,11 @@
 //
 // The count lives on the device, in count[0], so a launch reads nothing
 // from the host and can be captured in a CUDA graph. It must not race: no
-// block may read a count that another block has already advanced. Thread 0
-// of each block reads count[0], then takes a ticket (atomicAdd on
-// count[1]) behind a fence; the block that draws the last ticket knows that
-// every block has read count[0], and it alone writes c there and returns
-// the ticket to 0 for the next launch.
+// block may read a count that another block has already advanced. Thread
+// 0 of each block reads count[0], and after the block's barrier takes a
+// ticket (atomicAdd on count[1]) behind a fence; the block that
+// draws the last ticket knows that every block has read count[0], and it
+// alone writes c there and returns the ticket to 0 for the next launch.
 //
 // Bound: bytes. p, g, mu and nu are read once and p, mu and nu written
 // once: 28 bytes a parameter (utils/roofline.py::adam_bytes): 1.06 MB for
@@ -38,8 +38,22 @@
 // parameters with one 16-byte load from each array and 16-byte stores, one
 // group a thread up to a grid of 16 blocks an SM, then a grid-stride loop.
 // Arrays that are not all 16-byte aligned, and the last n % 4 parameters,
-// take a scalar pass. The two powers are computed once a block, by the
-// thread that reads the count.
+// take a scalar pass. At a head's size a block's time is latency: the
+// count's load, then two double powers (the first design computed both in
+// thread 0 before any thread issued its loads; chip_archive/adam_first.cu
+// keeps it).
+// Here every thread issues its first group's four loads first and updates
+// the two moments, which need no power, while thread 0 loads the count;
+// the powers come from a cache of K5's own (powers, 16 int32: for each
+// parity of the count a slot holding c, the bits of b1 and b2, and of
+// 1 - b1**c and 1 - b2**c), which thread 0 loads beside the count. Block
+// 0 computes the next count's powers (threads 64 and 96, one each, after
+// the block's barrier, so no block waits for them) into the other
+// parity's slot, which no block of this launch reads. A slot whose count
+// or constants differ (a fresh cache, a count restored by the caller) is a
+// miss: threads 0 and 32 then compute one power each, as before. A hit
+// gives the bits a miss would, since both are the same power of the same
+// operands, so K5 stays bit-equal to its plain version either way.
 
 #include <climits>
 #include <cmath>
@@ -57,62 +71,145 @@ struct Consts {
   float neg_lr, b1, omb1, b2, omb2, eps;
 };
 
-__device__ __forceinline__ void update(float& p, float g, float& m, float& v,
-                                       const Consts& k, float bc1,
-                                       float bc2) {
+// the moments, in optax's order; they need no bias correction
+__device__ __forceinline__ void moments(float g, float& m, float& v,
+                                        const Consts& k) {
   m = __fadd_rn(__fmul_rn(k.omb1, g), __fmul_rn(k.b1, m));
   v = __fadd_rn(__fmul_rn(k.omb2, __fmul_rn(g, g)), __fmul_rn(k.b2, v));
+}
+
+// the parameter's update from its new moments
+__device__ __forceinline__ void apply(float& p, float m, float v,
+                                      const Consts& k, float bc1,
+                                      float bc2) {
   const float u = __fdiv_rn(__fdiv_rn(m, bc1),
                             __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), k.eps));
   p = __fadd_rn(p, __fmul_rn(k.neg_lr, u));
 }
 
+__device__ __forceinline__ void moments4(const float4& g, float4& m,
+                                         float4& v, const Consts& k) {
+  moments(g.x, m.x, v.x, k);
+  moments(g.y, m.y, v.y, k);
+  moments(g.z, m.z, v.z, k);
+  moments(g.w, m.w, v.w, k);
+}
+
+__device__ __forceinline__ void apply4(float4& p, const float4& m,
+                                       const float4& v, const Consts& k,
+                                       float bc1, float bc2) {
+  apply(p.x, m.x, v.x, k, bc1, bc2);
+  apply(p.y, m.y, v.y, k, bc1, bc2);
+  apply(p.z, m.z, v.z, k, bc1, bc2);
+  apply(p.w, m.w, v.w, k, bc1, bc2);
+}
+
+// 1 - b**c in fp32 from the double power, as optax's fp32 arithmetic on
+// the double result gives it. Not inlined: inlined, the double power's
+// registers count against every thread (52, 4 blocks an SM, two waves at a
+// 512x3 head); called, the kernel takes 48 and the power its own frame.
+__device__ __noinline__ float bias_of(float b, int32_t c) {
+  return __fsub_rn(1.0f, static_cast<float>(pow(static_cast<double>(b),
+                                                static_cast<double>(c))));
+}
+
+constexpr int kSlot = 8;  // int32 a slot of the powers' cache
+
 __global__ void __launch_bounds__(kThreads)
     adam_kernel(float* __restrict__ p, const float* __restrict__ g,
                 float* __restrict__ mu, float* __restrict__ nu,
-                int32_t* count, int64_t n, bool vec, Consts k) {
+                int32_t* count, int32_t* powers, int64_t n, bool vec,
+                Consts k) {
   __shared__ float bias[2];
-  if (threadIdx.x == 0) {
-    const int32_t old = *reinterpret_cast<volatile int32_t*>(count);
-    const int32_t c = old < INT_MAX ? old + 1 : INT_MAX;
-    bias[0] = __fsub_rn(1.0f, static_cast<float>(pow(
-                                  static_cast<double>(k.b1),
-                                  static_cast<double>(c))));
-    bias[1] = __fsub_rn(1.0f, static_cast<float>(pow(
-                                  static_cast<double>(k.b2),
-                                  static_cast<double>(c))));
-    // this block's read of count[0] is done before its ticket is drawn
-    __threadfence();
-    if (atomicAdd(count + 1, 1) == static_cast<int>(gridDim.x) - 1) {
-      count[0] = c;
-      count[1] = 0;
-    }
-  }
-  __syncthreads();
-  const float bc1 = bias[0];
-  const float bc2 = bias[1];
+  __shared__ int32_t next;
+  __shared__ bool hit;
   const int64_t first =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t groups = vec ? n / kVec : 0;
-  for (int64_t q = first; q < groups; q += stride) {
-    float4 pv = reinterpret_cast<const float4*>(p)[q];
-    const float4 gv = __ldg(reinterpret_cast<const float4*>(g) + q);
-    float4 mv = reinterpret_cast<const float4*>(mu)[q];
-    float4 vv = reinterpret_cast<const float4*>(nu)[q];
-    update(pv.x, gv.x, mv.x, vv.x, k, bc1, bc2);
-    update(pv.y, gv.y, mv.y, vv.y, k, bc1, bc2);
-    update(pv.z, gv.z, mv.z, vv.z, k, bc1, bc2);
-    update(pv.w, gv.w, mv.w, vv.w, k, bc1, bc2);
+  // this thread's first group: its loads go out before the count's
+  const bool mine = first < groups;
+  float4 pv, gv, mv, vv;
+  if (mine) {
+    pv = reinterpret_cast<const float4*>(p)[first];
+    gv = __ldg(reinterpret_cast<const float4*>(g) + first);
+    mv = reinterpret_cast<const float4*>(mu)[first];
+    vv = reinterpret_cast<const float4*>(nu)[first];
+  }
+  if (threadIdx.x == 0) {
+    // the count and both slots, loaded together; the slot is chosen in
+    // registers (an array indexed by the count's parity would go through
+    // local memory)
+    const int32_t old = *reinterpret_cast<volatile int32_t*>(count);
+    const int4* cache = reinterpret_cast<const int4*>(powers);
+    const int4 even = __ldcg(cache), even_bc2 = __ldcg(cache + 1);
+    const int4 odd = __ldcg(cache + 2), odd_bc2 = __ldcg(cache + 3);
+    const int32_t c = old < INT_MAX ? old + 1 : INT_MAX;
+    const int4 head = (c & 1) ? odd : even;
+    const int32_t bc2 = (c & 1) ? odd_bc2.x : even_bc2.x;
+    const bool found = head.x == c && head.y == __float_as_int(k.b1) &&
+                       head.z == __float_as_int(k.b2);
+    if (found) {
+      bias[0] = __int_as_float(head.w);
+      bias[1] = __int_as_float(bc2);
+    }
+    hit = found;
+    next = c;
+  }
+  if (mine) moments4(gv, mv, vv, k);
+  // thread 0's read of count[0] is done before any thread goes on
+  __syncthreads();
+  if (!hit && (threadIdx.x == 0 || threadIdx.x == 32))
+    bias[threadIdx.x >> 5] = bias_of(threadIdx.x == 0 ? k.b1 : k.b2, next);
+  if (!hit) __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(count + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+      count[0] = next;
+      count[1] = 0;
+    }
+  }
+  if (blockIdx.x == 0 && (threadIdx.x == 64 || threadIdx.x == 96)) {
+    // the next launch's powers, into the slot of the other parity (a
+    // saturated count has no next one)
+    const int32_t c = next < INT_MAX ? next + 1 : INT_MAX;
+    if (c != next) {
+      int32_t* slot = powers + kSlot * (c & 1);
+      if (threadIdx.x == 64) {
+        slot[0] = c;
+        slot[1] = __float_as_int(k.b1);
+        slot[2] = __float_as_int(k.b2);
+        slot[3] = __float_as_int(bias_of(k.b1, c));
+      } else {
+        slot[4] = __float_as_int(bias_of(k.b2, c));
+      }
+    }
+  }
+  const float bc1 = bias[0];
+  const float bc2 = bias[1];
+  if (mine) {
+    apply4(pv, mv, vv, k, bc1, bc2);
+    reinterpret_cast<float4*>(p)[first] = pv;
+    reinterpret_cast<float4*>(mu)[first] = mv;
+    reinterpret_cast<float4*>(nu)[first] = vv;
+  }
+  for (int64_t q = first + stride; q < groups; q += stride) {
+    pv = reinterpret_cast<const float4*>(p)[q];
+    gv = __ldg(reinterpret_cast<const float4*>(g) + q);
+    mv = reinterpret_cast<const float4*>(mu)[q];
+    vv = reinterpret_cast<const float4*>(nu)[q];
+    moments4(gv, mv, vv, k);
+    apply4(pv, mv, vv, k, bc1, bc2);
     reinterpret_cast<float4*>(p)[q] = pv;
     reinterpret_cast<float4*>(mu)[q] = mv;
     reinterpret_cast<float4*>(nu)[q] = vv;
   }
   for (int64_t i = groups * kVec + first; i < n; i += stride) {
-    float pi = p[i];
     float mi = mu[i];
     float vi = nu[i];
-    update(pi, g[i], mi, vi, k, bc1, bc2);
+    float pi = p[i];
+    moments(g[i], mi, vi, k);
+    apply(pi, mi, vi, k, bc1, bc2);
     p[i] = pi;
     mu[i] = mi;
     nu[i] = vi;
@@ -123,12 +220,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // One adam step of n parameters: p, mu and nu updated in place from g;
 // count[0] the step count (advanced by one), count[1] the blocks' ticket
-// (0 between launches). A grid of at least one block, so the count
-// advances even when n is 0.
+// (0 between launches); powers the cache of bias corrections (16 int32,
+// 16-byte aligned, zeros when new, kept from launch to launch). A grid of
+// at least one block, so the count advances even when n is 0.
 extern "C" int v2p_adam(void* p, const void* g, void* mu, void* nu,
-                        void* count, int64_t n, float neg_lr, float b1,
-                        float omb1, float b2, float omb2, float eps,
-                        void* stream) {
+                        void* count, void* powers, int64_t n, float neg_lr,
+                        float b1, float omb1, float b2, float omb2,
+                        float eps, void* stream) {
   const bool vec = ((reinterpret_cast<uintptr_t>(p) |
                      reinterpret_cast<uintptr_t>(g) |
                      reinterpret_cast<uintptr_t>(mu) |
@@ -143,6 +241,7 @@ extern "C" int v2p_adam(void* p, const void* g, void* mu, void* nu,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(p), static_cast<const float*>(g),
       static_cast<float*>(mu), static_cast<float*>(nu),
-      static_cast<int32_t*>(count), n, vec, k);
+      static_cast<int32_t*>(count), static_cast<int32_t*>(powers), n, vec,
+      k);
   return static_cast<int>(cudaGetLastError());
 }

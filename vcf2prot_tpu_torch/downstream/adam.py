@@ -9,7 +9,10 @@ the parameters, their gradient and the two moments as four flat fp32
 buffers (:class:`~vcf2prot_tpu_torch.downstream.scoring.TrainableHead`
 keeps its parameters and gradients so) and the step count as a device
 int32, so one launch updates a whole head and reads nothing from the host:
-the launch can be captured in a CUDA graph.
+the launch can be captured in a CUDA graph. On the card K5 also needs a
+cache of its own, ``powers`` (:data:`POWERS` int32, zeros when new): the
+bias corrections of the next count, which each launch computes for the
+next one (``csrc/adam.cu``); the results do not depend on it.
 
 ``torch.optim.Adam`` is not this update: it moves the first moment with
 ``lerp_``, takes its bias corrections in float64 on the host and divides
@@ -25,6 +28,8 @@ from ..runtime.build import check_launch, load_kernels
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 INT32_MAX = 2 ** 31 - 1
+# int32 of K5's cache of bias corrections: two slots of 8
+POWERS = 16
 
 
 def _consts(lr: float) -> dict:
@@ -70,25 +75,36 @@ def adam_update_reference(p, g, mu, nu, count, lr: float) -> None:
     count[:1].copy_(c)
 
 
-def adam_update(p, g, mu, nu, count, lr: float) -> None:
+def adam_update(p, g, mu, nu, count, lr: float, powers=None) -> None:
     """One adam step, in place: ``p``, ``mu`` and ``nu`` (contiguous 1-D
     fp32) from the gradient ``g``, ``count`` (int32 ``[2]``: the step count,
     then K5's block ticket, 0 between launches) advanced by one. CUDA
-    tensors run K5 on the current stream, with no wait; CPU tensors run
-    :func:`adam_update_reference`."""
+    tensors run K5 on the current stream, with no wait, and need
+    ``powers`` (int32 ``[POWERS]``, 16-byte aligned, zeros when new, kept
+    from step to step), its cache of bias corrections; CPU tensors run
+    :func:`adam_update_reference`, which has no cache."""
     _check_adam_args(p, g, mu, nu, count)
+    if powers is not None and (
+            powers.dtype != torch.int32 or powers.shape != (POWERS,)
+            or not powers.is_contiguous() or powers.device != p.device
+            or powers.data_ptr() % 16):
+        raise TypeError(f"powers must be a contiguous, 16-byte aligned "
+                        f"int32 [{POWERS}] tensor on {p.device}")
     if p.device.type == "cpu":
         adam_update_reference(p, g, mu, nu, count, lr)
         return
     if p.device.type != "cuda":
         raise ValueError(f"unsupported device {p.device}")
+    if powers is None:
+        raise TypeError("K5 needs powers, its cache of bias corrections")
     k = _consts(lr)
     lib = load_kernels()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         check_launch(
             lib.v2p_adam(p.data_ptr(), g.data_ptr(), mu.data_ptr(),
-                         nu.data_ptr(), count.data_ptr(), p.numel(),
+                         nu.data_ptr(), count.data_ptr(), powers.data_ptr(),
+                         p.numel(),
                          k["neg_lr"], k["b1"], k["omb1"], k["b2"], k["omb2"],
                          k["eps"], stream),
             "adam",
@@ -104,7 +120,7 @@ class Adam:
     (``head.flat``, gradients ``head.flat_grad``): K5 on the card, its plain
     version on the CPU. The state starts as ``optax.adam(...).init``'s: mu
     and nu zeros, count 0, on the head's device; make it after the head is
-    on its device."""
+    on its device. ``powers`` is K5's cache, no part of that state."""
 
     def __init__(self, head, learning_rate: float):
         self.head = head
@@ -113,10 +129,12 @@ class Adam:
         self.nu = torch.zeros_like(head.flat)
         self.count = torch.zeros(2, dtype=torch.int32,
                                  device=head.flat.device)
+        self.powers = torch.zeros(POWERS, dtype=torch.int32,
+                                  device=head.flat.device)
 
     def step(self) -> None:
         adam_update(self.head.flat, self.head.flat_grad, self.mu, self.nu,
-                    self.count, self.learning_rate)
+                    self.count, self.learning_rate, self.powers)
 
     def state(self) -> list:
         """The tensors a step changes: the parameters, mu, nu, the count."""

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..runtime.build import check_launch, load_kernels
 from ..runtime.pack import pad_to_bucket
+from .head_tail import HeadTail, batch_loss
 from .peptides import (
     ALPHABET,
     VOCAB,
@@ -533,14 +534,17 @@ class TrainableHead(nn.Module):
 
     The forward is :class:`ScoringHead`'s: the fold and every bf16 cast run
     inside the graph, layer 1 is :class:`WindowLayer1` (K3, with K4 as its
-    gradient), the later layers :func:`later_layers`.
+    gradient), the later layers :func:`later_layers`. Training takes a
+    batch's loss from :meth:`loss`, which for a 1-deep head runs the output
+    layer, the loss and their gradients as K6.
 
     The parameters are views of one flat fp32 buffer, ``flat``, in their
     order, and their gradients views of a second, ``flat_grad``, set once
     (zero them in place: ``zero_grad(set_to_none=False)``), so that the
     optimizer (:class:`~vcf2prot_tpu_torch.downstream.adam.Adam`, K5)
-    updates the whole head from four pointers. Moving the head (``.to``)
-    makes both buffers anew on the new device.
+    updates the whole head from four pointers; ``grads`` names those
+    gradient views. Moving the head (``.to``) makes both buffers anew on
+    the new device.
     """
 
     def __init__(self, params: dict):
@@ -556,14 +560,17 @@ class TrainableHead(nn.Module):
     def _flatten(self) -> None:
         """Make the parameters views of ``flat`` and their gradients views
         of ``flat_grad``, keeping their values."""
-        params = list(self.parameters())
-        n = sum(p.numel() for p in params)
-        device = params[0].device
+        params = list(self.named_parameters())
+        n = sum(p.numel() for _name, p in params)
+        device = params[0][1].device
         self.flat = torch.empty(n, dtype=torch.float32, device=device)
         self.flat_grad = torch.zeros(n, dtype=torch.float32, device=device)
+        # K6's block ticket, 0 between launches
+        self.tail_ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.grads = {}
         off = 0
         with torch.no_grad():
-            for p in params:
+            for name, p in params:
                 view = self.flat[off:off + p.numel()].view_as(p)
                 grad = self.flat_grad[off:off + p.numel()].view_as(p)
                 view.copy_(p)
@@ -571,6 +578,7 @@ class TrainableHead(nn.Module):
                     grad.copy_(p.grad)
                 p.data = view
                 p.grad = grad
+                self.grads[name] = grad
                 off += p.numel()
 
     def _apply(self, fn, recurse=True):
@@ -589,23 +597,49 @@ class TrainableHead(nn.Module):
         return {name: p.detach().cpu().numpy().copy()
                 for name, p in self.named_parameters()}
 
-    def forward(self, windows) -> torch.Tensor:
-        """fp32 scores ``[B]`` of u8 windows ``[B, k]`` on the head's
-        device. Its windows are ``arange(B) * k`` over the rows, inside the
-        buffer by construction: K3 runs with no bounds check, so the
-        forward never waits for the device."""
+    def _layer1(self, windows) -> torch.Tensor:
+        """bf16 ``[B, H1]`` of u8 windows ``[B, k]`` on the head's device:
+        :class:`WindowLayer1` over ``arange(B) * k``, windows inside the
+        buffer by construction, so K3 runs with no bounds check and never
+        waits for the device."""
         b, k = windows.shape
         if k != self.k:
             raise ValueError(f"windows are {k}-mers, the head scores {self.k}")
         buf = windows.reshape(-1).contiguous()
         pos = torch.arange(b, dtype=torch.int64, device=buf.device) * k
-        h1 = WindowLayer1.apply(buf, pos, k, fold_table(self.embed, self.w1),
-                                self.b1)
-        return later_layers(h1, [
-            (getattr(self, n).to(torch.bfloat16).float(),
-             getattr(self, "b" + n[1:]))
-            for n in self.names[1:]
-        ])
+        return WindowLayer1.apply(buf, pos, k,
+                                  fold_table(self.embed, self.w1), self.b1)
+
+    def forward(self, windows) -> torch.Tensor:
+        """fp32 scores ``[B]`` of u8 windows ``[B, k]`` on the head's
+        device (:meth:`_layer1`, then :func:`later_layers`)."""
+        return later_layers(self._layer1(windows), self._later())
+
+    def _later(self) -> list:
+        """:func:`later_layers`' ``[(w, b), ...]``, each later weight through
+        its bf16 cast."""
+        return [(getattr(self, n).to(torch.bfloat16).float(),
+                 getattr(self, "b" + n[1:])) for n in self.names[1:]]
+
+    def loss(self, windows, y, m, binary: bool, count=None) -> torch.Tensor:
+        """The masked mean loss of a batch (``head_tail.batch_loss`` of
+        :meth:`forward`'s scores): u8 windows ``[B, k]``, fp32 labels
+        ``y`` and mask ``m`` ``[B]``, ``count`` the whole batch's mask count
+        (None: ``m``'s sum). A 1-deep head (``w1``, ``w2``) takes K6
+        (:class:`~vcf2prot_tpu_torch.downstream.head_tail.HeadTail`), whose
+        backward adds ``w2``'s and ``b2``'s gradients into their views of
+        ``flat_grad`` itself; a deeper one :func:`later_layers` and
+        ``batch_loss``. The choice is the head's shape's alone."""
+        h1 = self._layer1(windows)
+        if len(self.names) == 2:
+            out = self.names[1]
+            bias = "b" + out[1:]
+            return HeadTail.apply(h1, getattr(self, out),
+                                  getattr(self, bias), y, m, count, binary,
+                                  self.grads[out], self.grads[bias],
+                                  self.tail_ticket)
+        return batch_loss(later_layers(h1, self._later()), y, m, binary,
+                          count)
 
 
 def score_windows(windows, head: ScoringHead) -> torch.Tensor:

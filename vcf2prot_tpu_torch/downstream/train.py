@@ -25,8 +25,9 @@ device work with no host wait from the first step to the final fetch: the
 data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
 the rows into static epoch buffers on the device (:func:`_epoch_loop`);
 one training step (the batch picked from those buffers by a step count on
-the device, the forward, the loss, the backward through K3, the products
-and K4, then K5; :func:`_step_fn`) is captured in a CUDA graph and
+the device, the forward and the loss, the backward through K3, the
+products (or, for a 1-deep head, K6 both ways) and K4, then K5;
+:func:`_step_fn`) is captured in a CUDA graph and
 replayed once per batch (:class:`CapturedStep`); each step's loss lands in
 a device tensor, and the weights and losses are fetched once, at the end.
 On the CPU the same step runs eagerly, on the kernels' plain versions;
@@ -62,10 +63,14 @@ import sys
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..parallel.sharded import as_mesh, per_device
 from .adam import Adam, adam_update
+from .head_tail import (  # noqa: F401 (batch_loss: the loss of scores)
+    batch_loss,
+    head_tail_backward,
+    head_tail_forward,
+)
 from .scoring import (
     ScoringHead,
     TrainableHead,
@@ -79,7 +84,8 @@ from .scoring import (
 # steps run on a side stream before a capture
 CAPTURE_WARMUP = 3
 # the wrappers (and their launch counters) of the kernels a step launches
-STEP_KERNELS = (window_layer1, window_layer1_backward, adam_update)
+STEP_KERNELS = (window_layer1, window_layer1_backward, head_tail_forward,
+                head_tail_backward, adam_update)
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -99,27 +105,14 @@ def _epoch_orders(seed: int, padded: int, epochs: int, device):
         yield torch.randperm(padded, generator=gen, device=device)
 
 
-def batch_loss(scores, y, m, binary: bool, count=None) -> torch.Tensor:
-    """The masked mean loss of one batch: optax's
-    ``sigmoid_binary_cross_entropy`` when ``binary``, else the squared
-    error, summed over the rows with ``m`` = 1 and divided by their count
-    (at least 1). A shard of a data-parallel batch passes the whole
-    batch's ``count``."""
-    if binary:
-        per = -y * F.logsigmoid(scores) - (1.0 - y) * F.logsigmoid(-scores)
-    else:
-        per = (scores - y) ** 2
-    return (per * m).sum() / torch.clamp(
-        m.sum() if count is None else count, min=1.0)
-
-
 def train_step(replicas, opt, shards, binary: bool,
                l2: float = 0.0) -> torch.Tensor:
     """One optimizer step of the replicas of a head (:class:`TrainableHead`s,
     one per shard; a single-device fit has one): ``replicas[i]`` takes
     ``shards[i] = (w, y, m, count)``, the u8 windows ``[B, k]``, labels
     and mask of its rows and ``count``, the whole batch's mask count (None:
-    ``m.sum()``). The other replicas' flat gradients are added to the
+    ``m.sum()``), its loss from :meth:`TrainableHead.loss` (K6 for a
+    1-deep head). The other replicas' flat gradients are added to the
     first's in shard order, ``opt`` (:class:`Adam` in a fit) steps the
     first replica, whose weights are then copied to the others. Returns the
     sum of the shards' losses on the first replica's device. Nothing waits
@@ -128,7 +121,7 @@ def train_step(replicas, opt, shards, binary: bool,
     loss = None
     for head, (w, y, m, count) in zip(replicas, shards):
         head.flat_grad.zero_()
-        part = batch_loss(head(w), y, m, binary, count)
+        part = head.loss(w, y, m, binary, count)
         if l2:
             # added once in all: each shard carries 1/n of it
             part = part + l2 * sum((p * p).sum() for name, p in

@@ -41,9 +41,10 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_I = ctypes.c_int
 # C entry points: every pointer and the stream as c_void_p (a plain int
 # would be cut to 32 bits), every size as int64, every fp32 constant as
-# c_float; each returns cudaError_t
+# c_float, every flag as c_int; each returns cudaError_t
 SIGNATURES = {
     "v2p_segmented_copy_i32": (_P, _P, _P, _I64, _I64, _P, _P),
     "v2p_segmented_copy_i64": (_P, _P, _P, _I64, _I64, _P, _P),
@@ -55,7 +56,11 @@ SIGNATURES = {
                                    _P, _P, _P),
     "v2p_window_layer1_grad_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,
                                    _P, _P, _P),
-    "v2p_adam": (_P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F, _P),
+    "v2p_adam": (_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F, _P),
+    "v2p_head_tail_fwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P, _P,
+                          _P, _P, _P, _P),
+    "v2p_head_tail_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P,
+                          _P, _P, _P, _P, _P),
 }
 
 _LIB = None

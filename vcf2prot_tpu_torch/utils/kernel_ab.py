@@ -1,7 +1,9 @@
-"""Compare versions of K1 (the executor) or K2 (the validator) on one card.
+"""Compare versions of K1 (the executor), K2 (the validator) or K5 (adam)
+on one card.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
+    python3 -m vcf2prot_tpu_torch.utils.kernel_ab k5 OLD.cu NEW.cu [...]
 
 Each source holds the kernel's C entry point (``v2p_segmented_copy_i32``,
 the ABI of ``csrc/executor.cu``, or ``v2p_validate_i32``, that of
@@ -21,6 +23,15 @@ allocated once, printed with its share of the bound that ``utils/roofline.py``
 gives the case (the yardstick ``chip_smoke.py`` reports). It prints the
 card's name and power limit first, and exits non-zero if a version differs
 from the plain version.
+
+K5's sources hold ``v2p_adam`` (``csrc/adam.cu``; its first design is kept
+as ``chip_archive/adam_first.cu``, with the same signature), each given a
+cache of bias corrections kept from step to step. No cohort: each version
+steps the flat parameters of a 128x1 and a 512x3 head (37,793
+and 674,465), checked bit for bit against ``adam_update_reference`` over
+K5_STEPS steps, then is timed in the same order A, B, ..., B, A both
+launched alone and inside a CUDA graph of INNER launches (as a captured
+training step runs it).
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
 """
@@ -40,8 +51,12 @@ from ..runtime import build
 from . import roofline
 
 REPS, INNER = 10, 10
-ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32"}
+ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32",
+           "k5": "v2p_adam"}
 CHUNKS = (256 << 20, 128 << 20)
+# K5's heads (hidden width, depth) and its checked steps a version
+K5_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
+K5_STEPS = 3
 
 
 def build_all(paths, entry: str, outdir: str) -> list:
@@ -80,6 +95,24 @@ def median_ms(call) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / INNER)
     return statistics.median(times)
+
+
+def graph_ms(call) -> float:
+    """Median of REPS CUDA-event timings, each of INNER replays back to
+    back of a CUDA graph holding INNER calls, per call: the device's time
+    without the host's launch work. ``call`` runs 3 times first on a side
+    stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(INNER):
+            call()
+    return median_ms(graph.replay) / INNER
 
 
 def card() -> str:
@@ -198,13 +231,85 @@ def ab_k2(paths, fns, blob, flat) -> int:
     return bad
 
 
+def ab_k5(paths, fns, lr: float = 1e-3):
+    """K5's versions (``fns``, their ``v2p_adam``) at the two heads' sizes:
+    each checked bit for bit against ``adam_update_reference`` over
+    K5_STEPS steps, then timed A, B, ..., B, A, launched alone and in a
+    CUDA graph. Prints a line a head;
+    returns ``(versions that disagreed, {head: {path: {"ms": [...],
+    "graph_ms": [...]}}})``."""
+    import numpy as np
+
+    from ..downstream import adam as ad
+    from ..downstream.scoring import init_params
+
+    k = ad._consts(lr)
+    consts = (k["neg_lr"], k["b1"], k["omb1"], k["b2"], k["omb2"], k["eps"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    order = list(range(len(paths)))
+    order += order[::-1]
+    bad, out = 0, {}
+    for name, (hidden, depth) in K5_HEADS.items():
+        n = sum(int(np.size(v)) for v in init_params(
+            9, hidden=hidden, depth=depth).values())
+        p, mu, g = (torch.randn(n, generator=gen, device="cuda") * s
+                    for s in (0.1, 1e-2, 1e-3))
+        nu = torch.randn(n, generator=gen, device="cuda").abs() * 1e-4
+        times = {i: {"ms": [], "graph_ms": []} for i in order}
+        for i in order:
+            got = [t.clone() for t in (p, mu, nu)]
+            want = [t.clone() for t in (p, mu, nu)]
+            counts = [torch.tensor([5, 0], dtype=torch.int32, device="cuda")
+                      for _ in range(2)]
+            # the cache lives as long as the version's launches
+            powers = torch.zeros(ad.POWERS, dtype=torch.int32, device="cuda")
+
+            def launch(fn=fns[i], t=got, c=counts[0], powers=powers):
+                return fn(t[0].data_ptr(), g.data_ptr(), t[1].data_ptr(),
+                          t[2].data_ptr(), c.data_ptr(), powers.data_ptr(),
+                          n, *consts, torch.cuda.current_stream().cuda_stream)
+
+            for _ in range(K5_STEPS):
+                rc = launch()
+                if rc:
+                    raise RuntimeError(f"{paths[i]}: launch failed, "
+                                       f"cudaError_t {rc}")
+                ad.adam_update_reference(want[0], g, want[1], want[2],
+                                         counts[1], lr)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                    and torch.equal(*counts)):
+                bad += 1
+                print(f"{paths[i]} K5 {name}: differs from the plain version")
+            times[i]["ms"].append(median_ms(launch))
+            times[i]["graph_ms"].append(graph_ms(launch))
+        bound_ms, by = roofline.bound_ms(roofline.adam_bytes(n),
+                                         roofline.adam_ops(n))
+        out[name] = {paths[i]: times[i] for i in range(len(paths))}
+        print(f"K5 {name} ({n} parameters; launched alone / in a CUDA graph, "
+              f"ms, A B B A): " + "; ".join(
+                  f"{paths[i]} " + " / ".join(
+                      f"{a:.4f}, {b:.4f}" for a, b in zip(
+                          times[i]["ms"], times[i]["graph_ms"]))
+                  for i in range(len(paths)))
+              + f" against the {bound_ms:.6f} ms bound by {by} (equal to the "
+              f"plain version unless said above)")
+    return bad, out
+
+
 def main(argv) -> int:
-    if (not torch.cuda.is_available() or len(argv) < 4
+    k5 = argv[:1] == ["k5"]
+    if (not torch.cuda.is_available() or len(argv) < (2 if k5 else 4)
             or argv[0] not in ENTRIES):
         print(__doc__, file=sys.stderr)
         return 2
-    kernel, vcf, fasta, paths = argv[0], argv[1], argv[2], argv[3:]
     print(card())
+    if k5:
+        with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
+            fns = build_all(argv[1:], ENTRIES["k5"], outdir)
+            return 1 if ab_k5(argv[1:], fns)[0] else 0
+    kernel, vcf, fasta, paths = argv[0], argv[1], argv[2], argv[3:]
     blob, flat = _cohort(vcf, fasta)
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
         fns = build_all(paths, ENTRIES[kernel], outdir)

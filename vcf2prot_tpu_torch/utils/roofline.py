@@ -161,6 +161,42 @@ def adam_ops(n_params: int) -> int:
     return 14 * n_params
 
 
+def head_tail_bytes(rows: int, h_dim: int, part: str = "both") -> int:
+    """K6's compulsory bytes for ``rows`` rows of a head ``h_dim`` wide:
+    h1 (bf16 ``[rows, H]``), w2, b2, y and m read once (fp32); the
+    ``forward`` writes the loss, the ``backward`` reads the loss's gradient
+    and writes dh1 (bf16) and the ``H + 1`` gradients (fp32); ``both``, the
+    two as one function, reads the inputs once and writes both outputs."""
+    inputs = rows * h_dim * 2 + (h_dim + 1) * 4 + 2 * rows * 4
+    forward = 4
+    backward = 4 + rows * h_dim * 2 + (h_dim + 1) * 4
+    return inputs + {"forward": forward, "backward": backward,
+                     "both": forward + backward}[part]
+
+
+# fp32 operations of one row's loss and its slope in K6 (the two
+# polynomials, the reduction to them and the sigmoid cross-entropy), at
+# most
+HEAD_TAIL_ROW_OPS = 64
+
+
+def head_tail_ops(rows: int, h_dim: int, part: str = "both") -> int:
+    """K6's fp32 operations: the forward's product and sum over h1 (2 a
+    product), the backward's dh1 products and w2's column sums (3), and
+    HEAD_TAIL_ROW_OPS a row each way for the loss and its slope."""
+    forward = 2 * rows * h_dim + HEAD_TAIL_ROW_OPS * rows
+    backward = 3 * rows * h_dim + HEAD_TAIL_ROW_OPS * rows
+    return {"forward": forward, "backward": backward,
+            "both": forward + backward}[part]
+
+
+def head_tail_bound_ms(rows: int, h_dim: int, part: str = "both") -> tuple:
+    """``(ms, "bytes" | "operations")`` of K6 (:func:`head_tail_bytes`,
+    :func:`head_tail_ops`) through :func:`bound_ms`."""
+    return bound_ms(head_tail_bytes(rows, h_dim, part),
+                    head_tail_ops(rows, h_dim, part))
+
+
 def train_step_costs(params: dict, rows: int) -> dict:
     """``part -> (bytes, fp32 operations)`` of one training step of
     ``rows`` windows with the head ``params`` (int64 positions, each
