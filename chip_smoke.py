@@ -11,7 +11,7 @@ failing the run with a non-zero exit:
    computed from (``vcf2prot_tpu_torch/utils/roofline.py``), torch / CUDA /
    nvcc / Triton;
 2. build: K1 (executor), K2 (validator), K3 (window scorer), K4 (its
-   gradient), K5 (adam) and K6 (a 1-deep head's tail) through
+   gradient), K5 (adam) and K6 (the head's tail) through
    ``runtime/build.py``, one nvcc per source, all started together;
 3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
    the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
@@ -73,19 +73,27 @@ failing the run with a non-zero exit:
    wrapper and its plain version timed beside its bound and
    ``torch.optim.Adam(fused=True).step()`` on the same parameters (in a
    graph with ``capturable=True``, and eager);
-8c. K6 (the tail of a 1-deep head: the output product, the loss and its
-   gradient, forward and backward) against its plain version on the card:
-   the 8x1, 128x1 and 512x1 heads, 4,096, 4,095 (odd) and 2,048 rows (a dp
-   shard's, with the whole batch's count), binary and squared-error
-   labels, 37 rows masked: s, the loss, the count, dh1 and the gradients
-   added into w2's and b2's views bit-equal, two launches bit-equal, and
-   within rtol 1e-5 (loss), 1e-4 of the largest element (b2) and one
-   bf16 ulp of the largest element (w2 and dh1, both rounded to bf16) of
-   dense autograd through
-   ``later_layers`` and ``batch_loss``; at 128x1 and 4,096 binary rows
-   each launch timed alone back to back and in a CUDA graph, its wrapper
-   and its plain version, beside its bound, and both launches in a graph
-   against the torch ops they replace (``later_layers``, ``batch_loss``
+8c. K6 (the head's tail: the output product, the loss and its gradient,
+   forward and backward) against its plain version on the card: the 8x1,
+   128x1, 512x1 and 512x3 heads (the 512x3 head's tail takes its last
+   hidden layer, 512 wide) and a 12x1 head (not a multiple of K6's 8-element
+   chunk: its scalar path), 4,096, 4,095 (odd) and 2,048 rows (a dp
+   shard's, with the whole batch's count), binary and squared-error labels,
+   37 rows masked, and 128x1 at 4,095 rows 2 bytes past 16-byte alignment
+   (the scalar path again): s, the loss, the count, dh and the gradients
+   added into the output layer's views bit-equal, two launches bit-equal,
+   and within rtol 1e-5 (loss), 1e-4 of the largest element (b2) and one
+   bf16 ulp of the largest element (w2 and dh, both rounded to bf16) of
+   dense autograd through ``later_layers`` and ``batch_loss``; then K6's
+   first design (``chip_archive/head_tail_first.cu``) and the current one,
+   each built into a library of its own, on the 128x1 and 512x3 tails at
+   4,096 binary rows, A B B A (``utils/kernel_ab.py``'s ``ab_k6``: the
+   current one bit-equal to its plain version, the first within its
+   tolerance of float64), each way launched alone and in a CUDA graph (the
+   kernels line's ``ms``, ``graph_ms``, ``earlier_ms`` and
+   ``earlier_graph_ms``, the 512x3 tail's as ``wide_*``); the wrappers and
+   the plain versions beside the bound, and both wrappers in a graph
+   against the torch ops they replace (the output product, ``batch_loss``
    and their autograd) captured in a graph;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
@@ -97,7 +105,7 @@ failing the run with a non-zero exit:
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
    synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched once
    a step (replays counted), K6 once forward and once backward a step on
-   the 1-deep heads and never on 512x3; fit walls;
+   every head; fit walls;
 9b. step times: each head's captured step against its eager one
    (``capture=False``) by CUDA events, beside the step's bound; for the
    128x1 and 512x3 heads the host calls, device kernels and device busy
@@ -161,9 +169,10 @@ back; each kernel's bound from
 ``vcf2prot_tpu_torch/utils/roofline.py``, and its yardstick's time as
 ``library_ms`` and ``one_call_ms``, null where no one call computes the
 same; K5 and K6 also in a CUDA graph, ``graph_ms``, K5 beside
-``library_graph_ms``, torch's fused adam captured, and its first design's
-``earlier_ms`` / ``earlier_graph_ms``, K6 beside ``replaced_graph_ms``, the
-torch ops it replaces captured, null where they do not apply); the last
+``library_graph_ms``, torch's fused adam captured, both beside their first
+designs' ``earlier_ms`` / ``earlier_graph_ms``, K6 beside
+``replaced_graph_ms``, the torch ops it replaces captured, and its 512x3
+tail's numbers as ``wide_*``, null where they do not apply); the last
 line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
 package ``vcf2prot_tpu``.
 """
@@ -258,11 +267,17 @@ DP_TOL = {"128x1": 5e-3, "512x3": 1e-2}
 K5_ODD, K5_STEPS = 1_000_003, 3
 # K5's first design, timed beside the current one (phase 8b)
 K5_EARLIER = os.path.join(ROOT, "chip_archive", "adam_first.cu")
-# K6's heads (the 1-deep heads of phase 9), its row counts (a batch, an odd
-# one, a dp shard's of two) and its masked rows (phase 8c)
-K6_HEADS = ("8x1", "128x1", "512x1")
+# K6's heads (phase 9's, the 512x3 head's tail its last hidden layer, and
+# a 12-wide one, not a multiple of K6's 8-element chunk), its row counts (a
+# batch, an odd one, a dp shard's of two), its masked rows, the head also
+# checked 2 bytes past alignment and the heads of its A/B (phase 8c)
+K6_HEADS = {**TRAIN_HEADS, "12x1": dict(hidden=12, depth=1)}
 K6_ROWS = (4096, 4095, 2048)
 K6_PAD = 37
+K6_MISALIGNED = "128x1"
+K6_AB_HEADS = ("128x1", "512x3")
+# K6's first design, timed beside the current one (phase 8c)
+K6_EARLIER = os.path.join(ROOT, "chip_archive", "head_tail_first.cu")
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
 # seconds a multi-host child may take (phase 16)
@@ -1614,7 +1629,23 @@ def phase_k5(card):
     return measured
 
 
-def _k6_case(head, h1, binary, rows, count, rng):
+def _k6_tail(head, win):
+    """The activations K6 takes for ``head`` on the windows ``win`` (K3's
+    h1, or bf16 of its last hidden layer) and its output layer's ``w`` and
+    ``b``, detached."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream.scoring import hidden_layers
+
+    with torch.no_grad():
+        h = hidden_layers(head._layer1(win), head._later(
+            head.names[1:-1])).to(torch.bfloat16).contiguous()
+    out = head.names[-1]
+    return (h, getattr(head, out).detach(),
+            getattr(head, "b" + out[1:]).detach())
+
+
+def _k6_case(h, w2, b2, binary, rows, count, rng):
     """One K6 case on the card: labels, a mask with K6_PAD rows at the end
     and an incoming loss gradient, the kernel's forward and backward twice
     and the plain versions once on the same inputs; returns the inputs and
@@ -1624,7 +1655,7 @@ def _k6_case(head, h1, binary, rows, count, rng):
 
     from vcf2prot_tpu_torch.downstream import head_tail as ht
 
-    h_dim = h1.shape[1]
+    h_dim = h.shape[1]
     if binary:
         y = (rng.random(rows) < 0.3).astype(np.float32)
     else:
@@ -1633,31 +1664,38 @@ def _k6_case(head, h1, binary, rows, count, rng):
     m[rows - K6_PAD:] = 0.0
     y, m = (torch.from_numpy(a).to(DEV) for a in (y, m))
     g_loss = torch.tensor(0.75, device=DEV)
-    w2, b2 = head.w2.detach(), head.b2.detach()
-    ticket = torch.zeros(1, dtype=torch.int32, device=DEV)
     runs = []
     for _ in range(2):
-        s, loss, cnt = ht.head_tail_forward(h1, w2, b2, y, m, count, binary,
-                                            ticket)
+        s, loss, cnt = ht.head_tail_forward(h, w2, b2, y, m, count, binary)
         gw2 = torch.zeros(h_dim, device=DEV)
         gb2 = torch.zeros(1, device=DEV)
-        dh1 = ht.head_tail_backward(h1, w2, y, m, s, cnt, g_loss, binary,
-                                    gw2, gb2, ticket)
-        runs.append((s, loss, cnt, dh1, gw2, gb2))
-    s, loss, cnt = ht.head_tail_forward_reference(h1, w2, b2, y, m, count,
+        dh = ht.head_tail_backward(h, w2, y, m, s, cnt, g_loss, binary,
+                                   gw2, gb2)
+        runs.append((s, loss, cnt, dh, gw2, gb2))
+    s, loss, cnt = ht.head_tail_forward_reference(h, w2, b2, y, m, count,
                                                   binary)
     gw2, gb2 = torch.zeros(h_dim, device=DEV), torch.zeros(1, device=DEV)
-    dh1 = ht.head_tail_backward_reference(h1, w2, y, m, s, cnt, g_loss,
-                                          binary, gw2, gb2)
+    dh = ht.head_tail_backward_reference(h, w2, y, m, s, cnt, g_loss,
+                                         binary, gw2, gb2)
     torch.cuda.synchronize()
-    check(ticket.item() == 0, "K6: the ticket was not returned to 0")
-    return (y, m, g_loss, ticket), runs, (s, loss, cnt, dh1, gw2, gb2)
+    return (y, m, g_loss), runs, (s, loss, cnt, dh, gw2, gb2)
+
+
+def _k6_misaligned(h):
+    """``h``'s values in a view that starts 2 bytes past 16-byte alignment
+    (K6's scalar path)."""
+    import torch
+
+    flat = torch.empty(h.numel() + 1, dtype=h.dtype, device=h.device)
+    view = flat[1:].view(h.shape)
+    view.copy_(h)
+    return view
 
 
 def phase_k6(card):
     """8c: K6 against its plain version on the card (module docstring);
     returns its numbers, forward and backward, at 128x1 and 4,096 binary
-    rows."""
+    rows, with the 512x3 tail's beside them."""
     import numpy as np
     import torch
 
@@ -1667,161 +1705,179 @@ def phase_k6(card):
         init_params,
         later_layers,
     )
-    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
-    from vcf2prot_tpu_torch.utils import roofline
+    from vcf2prot_tpu_torch.utils import kernel_ab, roofline
 
     rng = np.random.default_rng(23)
     alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
-    outputs = ("s", "loss", "cnt", "dh1", "gw2", "gb2")
+    outputs = ("s", "loss", "cnt", "dh", "gw2", "gb2")
     worst = {}
     n_cases = 0
-    measured = {}
-    for name in K6_HEADS:
+    for name, shape in K6_HEADS.items():
         head = TrainableHead.from_params(
-            init_params(NEO_K, seed=1, **TRAIN_HEADS[name])).to(DEV)
+            init_params(NEO_K, seed=1, **shape)).to(DEV)
         for rows in K6_ROWS:
             win = torch.from_numpy(
                 alphabet[rng.integers(0, len(alphabet), (rows, NEO_K))]
             ).to(DEV)
-            with torch.no_grad():
-                h1 = head._layer1(win)
+            h, w2, b2 = _k6_tail(head, win)
             # a dp shard's rows divide by the whole batch's count
             count = (torch.tensor(2.0 * rows - K6_PAD, device=DEV)
                      if rows == K6_ROWS[2] else None)
-            for binary in (True, False):
-                what = (f"K6 {name} {rows} rows "
-                        f"{'binary' if binary else 'squared error'}"
-                        + (" (whole-batch count)" if count is not None
-                           else ""))
-                inputs, runs, plain = _k6_case(head, h1, binary, rows, count,
-                                               rng)
-                n_cases += 1
-                for key, a, b, c in zip(outputs, *runs, plain):
-                    check(torch.equal(a, b), f"{what}: two launches differ "
-                                             f"in {key}")
-                    check(torch.equal(a, c), f"{what}: {key} differs from "
-                          f"the plain version (max |d| "
-                          f"{float((a.float() - c.float()).abs().max())})")
-                    check(bool(torch.isfinite(a.float()).all()),
-                          f"{what}: {key} not finite")
-                # the arithmetic against dense autograd of the torch ops
-                y, m, g_loss, _ticket = inputs
-                h1l = h1.clone().requires_grad_()
-                w2l = head.w2.detach().clone().requires_grad_()
-                b2l = head.b2.detach().clone().requires_grad_()
-                loss = ht.batch_loss(later_layers(h1l, [(
-                    w2l.to(torch.bfloat16).float(), b2l)]), y, m, binary,
-                    count)
-                dh1, dw2, db2 = torch.autograd.grad(loss, (h1l, w2l, b2l),
-                                                    g_loss)
-                got = runs[0]
-                errs = {
-                    "loss": (float((got[1] - loss).abs()),
-                             1e-5 * float(loss.abs())),
-                    "dh1": (float((got[3].float() - dh1.float()).abs().max()),
-                            2.0 ** -7 * float(dh1.float().abs().max())),
-                    # both rounded to bf16: a sum an ulp apart may round
-                    # one bf16 ulp apart
-                    "w2": (float((got[4] - dw2.view(-1)).abs().max()),
-                           2.0 ** -8 * float(dw2.abs().max())),
-                    "b2": (float((got[5] - db2).abs().max()),
-                           1e-4 * float(db2.abs().max())),
-                }
-                for key, (err, tol) in errs.items():
-                    check(err <= tol, f"{what}: {key} lies {err} from dense "
-                          f"autograd, over {tol}")
-                    worst[key] = max(worst.get(key, 0.0), err / max(tol,
-                                                                    1e-30))
+            layouts = [("", h)]
+            if name == K6_MISALIGNED and rows == K6_ROWS[1]:
+                layouts.append((" 2 bytes past alignment", _k6_misaligned(h)))
+            for where, hx in layouts:
+                for binary in (True, False):
+                    what = (f"K6 {name} {rows} rows{where} "
+                            f"{'binary' if binary else 'squared error'}"
+                            + (" (whole-batch count)" if count is not None
+                               else ""))
+                    inputs, runs, plain = _k6_case(hx, w2, b2, binary, rows,
+                                                   count, rng)
+                    n_cases += 1
+                    for key, a, b, c in zip(outputs, *runs, plain):
+                        check(torch.equal(a, b), f"{what}: two launches "
+                                                 f"differ in {key}")
+                        check(torch.equal(a, c), f"{what}: {key} differs "
+                              f"from the plain version (max |d| "
+                              f"{float((a.float() - c.float()).abs().max())})")
+                        check(bool(torch.isfinite(a.float()).all()),
+                              f"{what}: {key} not finite")
+                    # the arithmetic against dense autograd of the torch ops
+                    y, m, g_loss = inputs
+                    hl = hx.clone().requires_grad_()
+                    w2l = w2.clone().requires_grad_()
+                    b2l = b2.clone().requires_grad_()
+                    loss = ht.batch_loss(later_layers(hl, [(
+                        w2l.to(torch.bfloat16).float(), b2l)]), y, m, binary,
+                        count)
+                    dh, dw2, db2 = torch.autograd.grad(loss, (hl, w2l, b2l),
+                                                       g_loss)
+                    got = runs[0]
+                    errs = {
+                        "loss": (float((got[1] - loss.detach()).abs()),
+                                 1e-5 * float(loss.detach().abs())),
+                        "dh": (float((got[3].float() - dh.float()).abs()
+                                     .max()),
+                               2.0 ** -7 * float(dh.float().abs().max())),
+                        # both rounded to bf16: a sum an ulp apart may round
+                        # one bf16 ulp apart
+                        "w2": (float((got[4] - dw2.view(-1)).abs().max()),
+                               2.0 ** -8 * float(dw2.abs().max())),
+                        "b2": (float((got[5] - db2).abs().max()),
+                               1e-4 * float(db2.abs().max())),
+                    }
+                    for key, (err, tol) in errs.items():
+                        check(err <= tol, f"{what}: {key} lies {err} from "
+                              f"dense autograd, over {tol}")
+                        worst[key] = max(worst.get(key, 0.0),
+                                         err / max(tol, 1e-30))
         del head
     print(f"K6 vs plain on {card}: {n_cases} cases (heads "
-          f"{', '.join(K6_HEADS)} x rows {K6_ROWS} x binary / squared "
-          f"error, {K6_PAD} rows masked): s, loss, count, dh1 and the w2 / "
-          f"b2 gradients bit-equal to the plain version, two launches "
-          f"bit-equal; against dense autograd of later_layers + batch_loss "
-          f"at most " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          f"{', '.join(K6_HEADS)}, the 512x3 head's tail its last hidden "
+          f"layer, x rows {K6_ROWS} x binary / squared error, {K6_PAD} rows "
+          f"masked; {K6_MISALIGNED} also 2 bytes past alignment): s, loss, "
+          f"count, dh and the output layer's gradients bit-equal to the "
+          f"plain version, two launches bit-equal; against dense autograd "
+          f"of later_layers + batch_loss at most "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
           + " of its tolerance")
 
-    # timing: 128x1, a training batch of binary rows
-    rows, h_dim = K6_ROWS[0], TRAIN_HEADS["128x1"]["hidden"]
-    head = TrainableHead.from_params(
-        init_params(NEO_K, seed=1, **TRAIN_HEADS["128x1"])).to(DEV)
-    win = torch.from_numpy(
-        alphabet[rng.integers(0, len(alphabet), (rows, NEO_K))]).to(DEV)
-    with torch.no_grad():
-        h1 = head._layer1(win)
-    (y, m, g_loss, ticket), runs, _plain = _k6_case(head, h1, True, rows,
-                                                    None, rng)
-    s, loss, cnt, dh1, gw2, gb2 = runs[0]
-    w2, b2 = head.w2.detach(), head.b2.detach()
-    lib = load_kernels()
-    part_f = torch.empty(2 * ht.tiles(rows), device=DEV)
-    part_b = torch.empty(ht.tiles(rows) * (h_dim + 1), device=DEV)
-    fwd_args = (h1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-                m.data_ptr(), None, rows, h_dim, 1, part_f.data_ptr(),
-                s.data_ptr(), loss.data_ptr(), cnt.data_ptr(),
-                ticket.data_ptr())
-    bwd_args = (h1.data_ptr(), w2.data_ptr(), y.data_ptr(), m.data_ptr(),
-                s.data_ptr(), cnt.data_ptr(), g_loss.data_ptr(), rows, h_dim,
-                1, part_b.data_ptr(), dh1.data_ptr(), gw2.data_ptr(),
-                gb2.data_ptr(), ticket.data_ptr())
-    entries = {"forward": (lib.v2p_head_tail_fwd, fwd_args),
-               "backward": (lib.v2p_head_tail_bwd, bwd_args)}
+    # the first design against the current one, in one call: both sides'
+    # launches timed alike, alone and in a CUDA graph
+    paths = [K6_EARLIER, os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                                      "head_tail.cu")]
+    names = [os.path.relpath(path, ROOT) for path in paths]
+    with tempfile.TemporaryDirectory(prefix="k6_ab_") as outdir:
+        fns = kernel_ab.build_all(paths, kernel_ab.ENTRIES["k6"], outdir)
+        bad, ab = kernel_ab.ab_k6(names, fns)
+    check(bad == 0, "K6: a version of the A/B differs from its check")
+    check(sorted(ab) == sorted(K6_AB_HEADS), f"K6: the A/B timed {sorted(ab)}")
 
-    def graphed(fn, args, what):
-        return _graph_ms(lambda: check_launch(
-            fn(*args, torch.cuda.current_stream().cuda_stream), what))
+    def ab_ms(head, path, key):
+        return statistics.median(ab[head][path][key])
 
-    def pair():
-        for fn, args in entries.values():
-            check_launch(fn(*args, torch.cuda.current_stream().cuda_stream),
-                         "K6")
+    # wrappers, plain versions and the torch ops K6 replaces, at the A/B's
+    # heads and a training batch of binary rows
+    rows = K6_ROWS[0]
+    measured = {"forward": {}, "backward": {}}
+    for head_name in K6_AB_HEADS:
+        head = TrainableHead.from_params(init_params(
+            NEO_K, seed=1, **TRAIN_HEADS[head_name])).to(DEV)
+        win = torch.from_numpy(
+            alphabet[rng.integers(0, len(alphabet), (rows, NEO_K))]).to(DEV)
+        h, w2, b2 = _k6_tail(head, win)
+        h_dim = h.shape[1]
+        (y, m, g_loss), runs, _plain = _k6_case(h, w2, b2, True, rows, None,
+                                                rng)
+        s, loss, cnt, dh, gw2, gb2 = runs[0]
+        wrappers = {
+            "forward": lambda: ht.head_tail_forward(h, w2, b2, y, m, None,
+                                                    True),
+            "backward": lambda: ht.head_tail_backward(
+                h, w2, y, m, s, cnt, g_loss, True, gw2, gb2)}
+        plains = {
+            "forward": lambda: ht.head_tail_forward_reference(
+                h, w2, b2, y, m, None, True),
+            "backward": lambda: ht.head_tail_backward_reference(
+                h, w2, y, m, s, cnt, g_loss, True, gw2, gb2)}
+        hl = h.clone().requires_grad_()
+        w2l = w2.clone().requires_grad_()
+        b2l = b2.clone().requires_grad_()
 
-    wrappers = {
-        "forward": lambda: ht.head_tail_forward(h1, w2, b2, y, m, None, True,
-                                                ticket),
-        "backward": lambda: ht.head_tail_backward(
-            h1, w2, y, m, s, cnt, g_loss, True, gw2, gb2, ticket)}
-    plains = {
-        "forward": lambda: ht.head_tail_forward_reference(h1, w2, b2, y, m,
-                                                          None, True),
-        "backward": lambda: ht.head_tail_backward_reference(
-            h1, w2, y, m, s, cnt, g_loss, True, gw2, gb2)}
-    h1l = h1.clone().requires_grad_()
-    w2l = head.w2.detach().clone().requires_grad_()
-    b2l = head.b2.detach().clone().requires_grad_()
+        def replaced():
+            """The torch ops K6 replaces: the output product, the loss and
+            their autograd back to h, w2 and b2."""
+            out = ht.batch_loss(later_layers(hl, [(
+                w2l.to(torch.bfloat16).float(), b2l)]), y, m, True)
+            return torch.autograd.grad(out, (hl, w2l, b2l))
 
-    def replaced():
-        """The torch ops K6 replaces: the output product, the loss and
-        their autograd back to h1, w2 and b2."""
-        out = ht.batch_loss(later_layers(h1l, [(
-            w2l.to(torch.bfloat16).float(), b2l)]), y, m, True)
-        return torch.autograd.grad(out, (h1l, w2l, b2l))
+        def pair():
+            ht.head_tail_backward(h, w2, y, m, *ht.head_tail_forward(
+                h, w2, b2, y, m, None, True)[::2], g_loss, True, gw2, gb2)
 
-    replaced_ms, _ = _cuda_ms(replaced, inner=BACK_TO_BACK)
-    replaced_graph = _graph_ms(replaced)
-    pair_graph = _graph_ms(pair)
-    for part, (fn, args) in entries.items():
-        ms = _launch_ms(fn, args, f"K6 {part}")
-        graph = graphed(fn, args, f"K6 {part}")
-        wrapper, _ = _cuda_ms(wrappers[part], inner=BACK_TO_BACK)
-        plain, _ = _cuda_ms(plains[part], inner=BACK_TO_BACK)
-        bound, by = roofline.head_tail_bound_ms(rows, h_dim, part)
-        measured[part] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
-            bound_by=by, library_ms=None, wrapper_ms=wrapper, graph_ms=graph,
-            replaced_ms=replaced_ms, replaced_graph_ms=replaced_graph,
-            pair_graph_ms=pair_graph)
-        print(f"K6 {part}, 128x1, {rows} binary rows on {card}: launched "
-              f"alone back to back {ms:.4f} ms, in a CUDA graph {graph:.4f} "
-              f"ms ({100 * bound / graph:.1f}% of the {bound:.6f} ms bound "
-              f"by {by}), wrapper {wrapper:.4f} ms, plain {plain:.4f} ms")
-    bound, by = roofline.head_tail_bound_ms(rows, h_dim)
-    print(f"K6 forward + backward, 128x1, {rows} binary rows on {card}: in "
-          f"a CUDA graph {pair_graph:.4f} ms ({100 * bound / pair_graph:.1f}% "
-          f"of the {bound:.6f} ms bound by {by}); the torch ops they replace "
-          f"(later_layers, batch_loss, their autograd) {replaced_graph:.4f} "
-          f"ms in a CUDA graph, {replaced_ms:.4f} ms eager")
-    del head, h1, h1l
+        replaced_ms, _ = _cuda_ms(replaced, inner=BACK_TO_BACK)
+        replaced_graph = _graph_ms(replaced)
+        pair_graph = _graph_ms(pair)
+        # the kernels line's K6 numbers are 128x1's; the 512x3 tail's
+        # beside them, as wide_*
+        prefix = "" if head_name == "128x1" else "wide_"
+        for part, key in (("forward", "fwd"), ("backward", "bwd")):
+            ms = ab_ms(head_name, names[1], f"{key}_ms")
+            graph = ab_ms(head_name, names[1], f"{key}_graph_ms")
+            earlier = ab_ms(head_name, names[0], f"{key}_ms")
+            earlier_graph = ab_ms(head_name, names[0], f"{key}_graph_ms")
+            wrapper, _ = _cuda_ms(wrappers[part], inner=BACK_TO_BACK)
+            plain, _ = _cuda_ms(plains[part], inner=BACK_TO_BACK)
+            bound, by = roofline.head_tail_bound_ms(rows, h_dim, part)
+            numbers = dict(
+                ms=ms, graph_ms=graph, earlier_ms=earlier,
+                earlier_graph_ms=earlier_graph, plain_ms=plain,
+                bound_ms=bound, bound_by=by, wrapper_ms=wrapper,
+                replaced_ms=replaced_ms, replaced_graph_ms=replaced_graph,
+                pair_graph_ms=pair_graph)
+            if not prefix:
+                measured[part].update(max_abs_err=0.0, library_ms=None,
+                                      **numbers)
+            else:
+                measured[part].update({prefix + k: v
+                                       for k, v in numbers.items()
+                                       if k not in ("bound_by",)})
+            print(f"K6 {part}, {head_name} tail ({h_dim} wide), {rows} "
+                  f"binary rows on {card}, A B B A against its first design "
+                  f"(median of each version's two): launched alone back to "
+                  f"back {ms:.4f} ms (first design {earlier:.4f}), in a CUDA "
+                  f"graph {graph:.4f} ms (first design {earlier_graph:.4f}; "
+                  f"{100 * bound / graph:.1f}% of the {bound:.6f} ms bound by "
+                  f"{by}), wrapper {wrapper:.4f} ms, plain {plain:.4f} ms")
+        bound, by = roofline.head_tail_bound_ms(rows, h_dim)
+        print(f"K6 forward + backward, {head_name} tail, {rows} binary rows "
+              f"on {card}: their wrappers in a CUDA graph {pair_graph:.4f} "
+              f"ms ({100 * bound / pair_graph:.1f}% of the {bound:.6f} ms "
+              f"bound by {by}); the torch ops they replace (the output "
+              f"product, batch_loss, their autograd) {replaced_graph:.4f} ms "
+              f"in a CUDA graph, {replaced_ms:.4f} ms eager")
+        del head, h, hl
     torch.cuda.empty_cache()
     return measured
 
@@ -1893,9 +1949,8 @@ def phase_train(card):
             trained[name], aucs[name], wall = mhc.train_config(
                 win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
         k6[name] = (head_tail_forward.launches, head_tail_backward.launches)
-        # K6 once each way a step on a 1-deep head, never on a deeper one
-        want = ((steps + train.CAPTURE_WARMUP,) * 2 if shape["depth"] == 1
-                else (0, 0))
+        # K6 once each way a step, on every head
+        want = (steps + train.CAPTURE_WARMUP,) * 2
         check(k6[name] == want, f"{name}: K6 launched {k6[name]} times "
               f"(forward, backward), not {want}")
         print(f"train {name} on {card}: holdout AUC {aucs[name]:.4f} "
@@ -2006,7 +2061,7 @@ def _fit_profile(win, labels, n_tr, shape, capture):
 def phase_step_times(card, k4, k6):
     """9b: the captured step against the eager one (``capture=False``):
     device time a step, host calls and device kernels a step, the shares of
-    K4 and (128x1) K6, then phase 9's fits captured against eager, A B B A,
+    K4 and K6, then phase 9's fits captured against eager, A B B A,
     with their weights bit-equal; beside each head's bound from
     ``utils/roofline.py``."""
     import numpy as np
@@ -2025,7 +2080,8 @@ def phase_step_times(card, k4, k6):
           f"back to back; captured / eager ms): " + "; ".join(
               f"{n} {v['captured']:.4f} / {v['eager']:.4f}"
               for n, v in step.items()))
-    k6_ms = k6["forward"]["pair_graph_ms"]
+    k6_ms = {"128x1": k6["forward"]["pair_graph_ms"],
+             "512x3": k6["forward"]["wide_pair_graph_ms"]}
     for name in HEADS:
         params = init_params(NEO_K, seed=0, **HEADS[name])
         bound, by = roofline.train_step_bound_ms(params, MHC_BATCH)
@@ -2035,9 +2091,8 @@ def phase_step_times(card, k4, k6):
               f"K5); captured step {100 * bound / step[name]['captured']:.1f}% "
               f"of it; K4 {k4_ms:.4f} ms, "
               f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
-              f"step" + ("" if name != "128x1" else
-                         f"; K6 both ways in a graph {k6_ms:.4f} ms, "
-                         f"{100 * k6_ms / step[name]['captured']:.1f}%"))
+              f"step; K6 both ways in a graph {k6_ms[name]:.4f} ms, "
+              f"{100 * k6_ms[name] / step[name]['captured']:.1f}%")
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     for name in CAPTURE_HEADS:
         shape = TRAIN_HEADS[name]
@@ -2626,7 +2681,10 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "wrapper_ms", "graph_ms", "library_graph_ms",
             "earlier_ms", "earlier_graph_ms", "replaced_ms",
-            "replaced_graph_ms", "pair_graph_ms")
+            "replaced_graph_ms", "pair_graph_ms", "wide_ms", "wide_graph_ms",
+            "wide_earlier_ms", "wide_earlier_graph_ms", "wide_bound_ms",
+            "wide_plain_ms", "wide_wrapper_ms", "wide_replaced_ms",
+            "wide_replaced_graph_ms", "wide_pair_graph_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

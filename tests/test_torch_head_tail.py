@@ -1,7 +1,7 @@
 """K6's plain version (vcf2prot_tpu_torch/downstream/head_tail.py: the
-tail of a 1-deep scoring head, the output product, the masked loss and its
-gradient) on the CPU, as ``TrainableHead.loss`` and ``train_step`` run it,
-against ``jax.value_and_grad`` of the JAX package's ``local_loss``
+tail of a scoring head of any depth, the output product, the masked loss
+and its gradient) on the CPU, as ``TrainableHead.loss`` and ``train_step``
+run it, against ``jax.value_and_grad`` of the JAX package's ``local_loss``
 (``vcf2prot_tpu/downstream/train.py:109``, ``:134-140``) and against dense
 autograd of ``later_layers`` plus ``batch_loss``, on inputs made by numpy
 from a seed.
@@ -12,14 +12,16 @@ Tolerances:
   of ``tests/test_torch_train.py::test_one_step_gradients_match_jax``);
   each gradient within 2e-3 of its largest element, that test's 128x1
   gradient tolerance (both sides round every cotangent of a bf16 operand to
-  bf16 at the same places; h1 differs by the fold's rounding);
+  bf16 at the same places; h1 differs by the fold's rounding), for deeper
+  heads too;
 * against dense autograd on the same head: the loss within rtol 1e-6 and
   each gradient within 1e-5 of its largest element (the same arithmetic up
   to fp32 summation order and K6's polynomial exp and log1p, within 4 ulp),
-  w2's within one bf16 ulp of its largest (both sides round it to bf16, so
-  sums an fp32 ulp apart may round a bf16 ulp apart);
-* K6's orders (its lane sums, its tiles' column sums) and its polynomials'
-  constants against the CUDA source: exact.
+  the output layer's within one bf16 ulp of its largest (both sides round
+  it to bf16, so sums an fp32 ulp apart may round a bf16 ulp apart), for
+  deeper heads too;
+* K6's orders (its row dot products, its loss and mask sums, its column
+  sums) and its constants against the CUDA source: exact.
 """
 import math
 import os
@@ -104,15 +106,17 @@ def test_plain_version_matches_jax_value_and_grad(binary, hidden, count):
         h1 = head._layer1(torch.from_numpy(win))
         s, _loss, _cnt = ht.head_tail_forward(
             h1, head.w2, head.b2, torch.from_numpy(y), torch.from_numpy(m),
-            None, binary, head.tail_ticket)
+            None, binary)
     want = np.asarray(jax_scoring.score_windows(win, params))
     assert np.abs(s.numpy() - want).max() <= 2e-3
 
 
 @pytest.mark.parametrize("count", [None, 700.0])
-@pytest.mark.parametrize("hidden", [8, 128])
+@pytest.mark.parametrize("hidden", [8, 12, 128])
 @pytest.mark.parametrize("binary", [True, False])
 def test_plain_version_matches_dense_autograd(binary, hidden, count):
+    """12 wide: not a multiple of K6's 8-element chunk (its scalar path on
+    the card)."""
     win, y, m = batch(651, binary, seed=7 * hidden + int(binary), pad=11)
     params = init_params(K, hidden=hidden, seed=5)
     _head, got_loss, got = port_loss_and_grads(params, win, y, m, binary,
@@ -129,6 +133,60 @@ def test_plain_version_matches_dense_autograd(binary, hidden, count):
         want = p.grad.numpy()
         err = np.abs(got[name] - want).max()
         tol = 2.0 ** -8 if name == "w2" else 1e-5
+        assert err <= tol * np.abs(want).max(), (name, err)
+
+
+DEEP = [dict(hidden=16, depth=2), dict(hidden=8, depth=3),
+        dict(hidden=[16, 8])]
+
+
+def _shape_id(shape):
+    return "x".join(map(str, np.atleast_1d(shape["hidden"]))) + (
+        f"d{shape['depth']}" if "depth" in shape else "")
+
+
+@pytest.mark.parametrize("shape", DEEP, ids=_shape_id)
+@pytest.mark.parametrize("binary", [True, False])
+def test_deeper_head_matches_jax_value_and_grad(binary, shape):
+    """A deeper head's tail through K6's plain version: its input the last
+    hidden layer's bf16(relu(...)), whose gradient flows back through the
+    cast to the hidden layers."""
+    win, y, m = batch(1000, binary, seed=int(binary) + 31)
+    params = init_params(K, seed=3, **shape)
+    loss, grads = jax.value_and_grad(jax_local_loss)(
+        {k: jnp.asarray(v) for k, v in params.items()}, win, y, m, binary,
+        None)
+    _head, got_loss, got = port_loss_and_grads(params, win, y, m, binary,
+                                               None)
+    np.testing.assert_allclose(got_loss, float(loss), rtol=1e-4)
+    for name, g in grads.items():
+        g = np.asarray(g)
+        err = np.abs(got[name] - g).max()
+        assert err <= 2e-3 * np.abs(g).max(), (name, err)
+
+
+@pytest.mark.parametrize("count", [None, 700.0])
+@pytest.mark.parametrize("shape", DEEP, ids=_shape_id)
+@pytest.mark.parametrize("binary", [True, False])
+def test_deeper_head_matches_dense_autograd(binary, shape, count):
+    win, y, m = batch(651, binary, seed=int(binary) + 17, pad=11)
+    params = init_params(K, seed=5, **shape)
+    head, got_loss, got = port_loss_and_grads(params, win, y, m, binary,
+                                              count)
+    out = head.names[-1]
+    dense = TrainableHead.from_params(params)
+    dense.flat_grad.zero_()
+    cnt = None if count is None else torch.tensor(count)
+    scores = later_layers(dense._layer1(torch.from_numpy(win)),
+                          dense._later())
+    loss = ht.batch_loss(scores, torch.from_numpy(y), torch.from_numpy(m),
+                         binary, cnt)
+    loss.backward()
+    np.testing.assert_allclose(got_loss, float(loss.detach()), rtol=1e-6)
+    for name, p in dense.named_parameters():
+        want = p.grad.numpy()
+        err = np.abs(got[name] - want).max()
+        tol = 2.0 ** -8 if name == out else 1e-5
         assert err <= tol * np.abs(want).max(), (name, err)
 
 
@@ -170,61 +228,140 @@ def test_constants_are_the_kernels():
     assert ht.EXP_COEFFS == tuple(
         float(np.float32(1) / np.float32(math.factorial(i)))
         for i in range(8))
-    assert f"kTileRows = {ht.TILE_ROWS};" in src
+    # the geometry the plain version's order follows
+    for name, value in (("kThreads", 32 * ht.WARPS), ("kCluster", ht.CLUSTER),
+                        ("kGroupRows", ht.GROUP_ROWS), ("kChunk", ht.CHUNK),
+                        ("kMaxH", ht.MAX_H)):
+        assert re.search(rf"constexpr int(64_t)? {name} = {value};", src), name
+    assert "constexpr int kPassCols = 32 * kChunk;" in src
+    assert ht.PASS_COLS == ht.LANES * ht.CHUNK
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 64, 100, 1000])
+def f32(x):
+    return np.float32(x)
+
+
+def np_halving(vals):
+    vals = [f32(v) for v in vals]
+    while len(vals) > 1:
+        half = len(vals) // 2
+        vals = [f32(vals[i] + vals[i + half]) for i in range(half)]
+    return vals[0]
+
+
+def np_cluster_fold(warps):
+    """The warps' partials (warp w is warp w % WARPS of block w //
+    WARPS): each block's WARPS folded by halving, then the blocks'."""
+    blocks = [np_halving(warps[b * ht.WARPS:(b + 1) * ht.WARPS])
+              for b in range(ht.CLUSTER)]
+    return np_halving(blocks)
+
+
+def np_warp_rows(rows):
+    """Each warp's rows in order: groups w, w + W, ... of 32 rows, W the
+    cluster's warps."""
+    n_warps = ht.CLUSTER * ht.WARPS
+    groups = -(-rows // ht.GROUP_ROWS)
+    return [[r for g in range(w, groups, n_warps)
+             for r in range(g * 32, min(g * 32 + 32, rows))]
+            for w in range(n_warps)]
+
+
+@pytest.mark.parametrize("n", [1, 12, 31, 32, 64, 100, 257, 512, 1000])
 def test_lane_sum_is_the_kernels_order(n):
-    """Lane l adds elements l, l + 32, ... from +0.0 in fp32, then the lanes
-    fold by halving: the order of csrc/head_tail.cu's lane sums."""
+    """A row's dot product: chunk c (elements 8c .. 8c + 7, zeros past H)
+    in lane c % 32, pass c // 32; a chunk's 8 products summed as a tree of
+    neighbours; a lane's chunks from +0.0, pass by pass; the 32 lanes
+    folded by halving: the order of csrc/head_tail.cu's row_dots."""
     rng = np.random.default_rng(n)
-    x = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)).astype(
-        np.float32)
-    lanes = [np.float32(0)] * 32
-    for i, v in enumerate(x):
-        lanes[i % 32] = np.float32(lanes[i % 32] + v)
-    off = 16
-    while off:
-        lanes = [np.float32(lanes[i] + lanes[i + off]) for i in range(off)]
-        off //= 2
-    got = ht.lane_sum(torch.from_numpy(x)).numpy()
-    assert got.tobytes() == np.float32(lanes[0]).tobytes()
+    h = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(
+        -3, 4, n)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        torch.bfloat16).float()
+    hv, wv = h.float().numpy(), w.numpy()
+    prod = [f32(hv[i] * wv[i]) for i in range(n)]
+    chunks = -(-n // ht.CHUNK)
+    lanes = [f32(0)] * 32
+    for p in range(max(1, -(-chunks // 32))):
+        for lane in range(32):
+            c = 32 * p + lane
+            e = [prod[8 * c + j] if 8 * c + j < n else f32(0)
+                 for j in range(8)]
+            q = f32(f32(f32(e[0] + e[1]) + f32(e[2] + e[3]))
+                    + f32(f32(e[4] + e[5]) + f32(e[6] + e[7])))
+            lanes[lane] = f32(lanes[lane] + q)
+    got = ht.row_dots(h[None], w).numpy()
+    assert got.tobytes() == np.float32(np_halving(lanes)).tobytes()
 
 
-@pytest.mark.parametrize("rows", [1, 64, 65, 200])
-def test_backward_sums_in_the_kernels_order(rows):
-    """w2's and b2's gradients: each tile's rows in order from +0.0, then
-    the tiles in order, in fp32; w2's rounded to bf16 and added into the
-    gradient views."""
+@pytest.mark.parametrize("rows", [1, 33, 2047, 4095, 33000])
+def test_forward_sums_in_the_kernels_order(rows):
+    """The loss and mask sums: a group's 32 rows folded by halving, a
+    warp's groups in order from +0.0, then the blocks' warps and the
+    cluster's blocks folded by halving."""
     rng = np.random.default_rng(rows)
-    h_dim = 5
-    h1 = torch.from_numpy(np.maximum(rng.standard_normal(
-        (rows, h_dim)), 0).astype(np.float32)).to(torch.bfloat16)
-    w2 = torch.from_numpy(rng.standard_normal(h_dim).astype(np.float32))
-    y = torch.from_numpy((rng.random(rows) < 0.5).astype(np.float32))
-    m = torch.ones(rows)
-    s = torch.from_numpy(rng.standard_normal(rows).astype(np.float32))
-    cnt, g_loss = torch.tensor(float(rows)), torch.tensor(1.0)
-    gw2, gb2 = torch.zeros(h_dim), torch.zeros(1)
-    dh1 = ht.head_tail_backward_reference(h1, w2, y, m, s, cnt, g_loss,
-                                          True, gw2, gb2)
-    g = np.float32(1.0) / np.float32(rows)
-    ds = ((g * m.numpy()).astype(np.float32)
-          * ht.row_slope(s, y, True).numpy()).astype(np.float32)
-    hf = h1.float().numpy()
-    want = np.zeros(h_dim + 1, np.float32)
-    for t in range(0, rows, ht.TILE_ROWS):
-        part = np.zeros(h_dim + 1, np.float32)
-        for r in range(t, min(t + ht.TILE_ROWS, rows)):
-            part = (part + np.append(hf[r] * ds[r], ds[r])).astype(
-                np.float32)
-        want = (want + part).astype(np.float32)
-    w_bf = torch.from_numpy(want[:h_dim]).to(torch.bfloat16).float()
-    assert torch.equal(gw2, w_bf)
-    assert gb2.numpy().tobytes() == want[h_dim:].tobytes()
-    w2b = w2.to(torch.bfloat16).float()
-    assert torch.equal(dh1, (torch.from_numpy(ds)[:, None] * w2b).to(
-        torch.bfloat16))
+    x = (rng.standard_normal(rows) * 10.0 ** rng.integers(-3, 4, rows)
+         ).astype(np.float32)
+    warps = []
+    for mine in np_warp_rows(rows):
+        acc = f32(0)
+        for g0 in range(0, len(mine), 32):
+            group = [x[r] for r in mine[g0:g0 + 32]]
+            acc = f32(acc + np_halving(group + [f32(0)] * (32 - len(group))))
+        warps.append(acc)
+    got = ht.row_sum(torch.from_numpy(x)).numpy()
+    assert got.tobytes() == np.float32(np_cluster_fold(warps)).tobytes()
+
+
+@pytest.mark.parametrize("rows", [1, 64, 65, 200, 2100, 4095, 33000])
+def test_backward_sums_in_the_kernels_order(rows):
+    """w2's and b2's gradients: a warp's rows of each group cut into the
+    rows of one load (32 // lanes_per_row(H) sums, row k * n + j into sum
+    j), each in order from +0.0, group after group; the sums folded by
+    halving, then the blocks' warps and the cluster's blocks folded by
+    halving, in fp32; w2's rounded to bf16 and added into the gradient
+    views. H 5, 20 and 300: one lane a row, 4, and 32 in two passes."""
+    rng = np.random.default_rng(rows)
+    for h_dim in (5, 20, 300):
+        h1 = torch.from_numpy(np.maximum(rng.standard_normal(
+            (rows, h_dim)), 0).astype(np.float32)).to(torch.bfloat16)
+        w2 = torch.from_numpy(rng.standard_normal(h_dim).astype(np.float32))
+        y = torch.from_numpy((rng.random(rows) < 0.5).astype(np.float32))
+        m = torch.ones(rows)
+        s = torch.from_numpy(rng.standard_normal(rows).astype(np.float32))
+        cnt, g_loss = torch.tensor(float(rows)), torch.tensor(1.0)
+        gw2, gb2 = torch.zeros(h_dim), torch.zeros(1)
+        dh1 = ht.head_tail_backward_reference(h1, w2, y, m, s, cnt, g_loss,
+                                              True, gw2, gb2)
+        g = np.float32(1.0) / np.float32(rows)
+        ds = ((g * m.numpy()).astype(np.float32)
+              * ht.row_slope(s, y, True).numpy()).astype(np.float32)
+        hf = h1.float().numpy()
+        n_sub = 32 // ht.lanes_per_row(h_dim)
+        warps = []
+        for mine in np_warp_rows(rows):
+            subs = [np.zeros(h_dim + 1, np.float32) for _ in range(n_sub)]
+            for r in mine:
+                j = (r % 32) % n_sub
+                subs[j] = (subs[j] + np.append(hf[r] * ds[r], ds[r])).astype(
+                    np.float32)
+            warps.append(np.array([np_halving([sub[c] for sub in subs])
+                                   for c in range(h_dim + 1)], np.float32))
+        want = np.array([np_cluster_fold([w[c] for w in warps])
+                         for c in range(h_dim + 1)], np.float32)
+        w_bf = torch.from_numpy(want[:h_dim]).to(torch.bfloat16).float()
+        assert torch.equal(gw2, w_bf), h_dim
+        assert gb2.numpy().tobytes() == want[h_dim:].tobytes(), h_dim
+        w2b = w2.to(torch.bfloat16).float()
+        assert torch.equal(dh1, (torch.from_numpy(ds)[:, None] * w2b).to(
+            torch.bfloat16)), h_dim
+
+
+@pytest.mark.parametrize("h_dim,lanes", [(1, 1), (8, 1), (12, 2), (40, 8),
+                                         (128, 16), (129, 32), (512, 32)])
+def test_lanes_per_row(h_dim, lanes):
+    """A row's chunks rounded up to a power of 2, at most 32 lanes."""
+    assert ht.lanes_per_row(h_dim) == lanes
 
 
 def test_shards_with_the_whole_count_sum_to_the_batch():
@@ -243,8 +380,8 @@ def test_shards_with_the_whole_count_sum_to_the_batch():
 
 
 @pytest.mark.parametrize("shape,uses_k6", [
-    (dict(hidden=16, depth=1), True), (dict(hidden=[16, 8]), False),
-    (dict(hidden=16, depth=3), False)])
+    (dict(hidden=16, depth=1), True), (dict(hidden=[16, 8]), True),
+    (dict(hidden=16, depth=3), True)])
 def test_train_step_takes_k6_by_the_heads_shape(shape, uses_k6, monkeypatch):
     calls = []
     real = ht.head_tail_forward_reference
@@ -283,28 +420,29 @@ def test_wrappers_check_their_arguments():
     h1 = torch.zeros((10, 4), dtype=torch.bfloat16)
     w2, b2 = torch.zeros(4), torch.zeros(1)
     y = m = torch.zeros(10)
-    ticket = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(TypeError, match="h1"):
-        ht.head_tail_forward(h1.float(), w2, b2, y, m, None, True, ticket)
+    with pytest.raises(TypeError, match="h must"):
+        ht.head_tail_forward(h1.float(), w2, b2, y, m, None, True)
     with pytest.raises(TypeError, match="w2"):
-        ht.head_tail_forward(h1, torch.zeros(5), b2, y, m, None, True,
-                             ticket)
+        ht.head_tail_forward(h1, torch.zeros(5), b2, y, m, None, True)
     with pytest.raises(TypeError, match="count"):
-        ht.head_tail_forward(h1, w2, b2, y, m, torch.zeros(2), True, ticket)
-    with pytest.raises(TypeError, match="ticket"):
-        ht.head_tail_forward(h1, w2, b2, y, m, None, True, torch.zeros(1))
+        ht.head_tail_forward(h1, w2, b2, y, m, torch.zeros(2), True)
+    with pytest.raises(TypeError, match="y must"):
+        ht.head_tail_forward(h1, w2, b2, torch.zeros(9), m, None, True)
+    wide = torch.zeros((2, ht.MAX_H + 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wide"):
+        ht.head_tail_forward(wide, torch.zeros(ht.MAX_H + 1), b2,
+                             torch.zeros(2), torch.zeros(2), None, True)
     with pytest.raises(TypeError, match="s must"):
         ht.head_tail_backward(h1, w2, y, m, torch.zeros(9), torch.ones(()),
                               torch.ones(()), True, torch.zeros(4),
-                              torch.zeros(1), ticket)
+                              torch.zeros(1))
 
 
 def test_empty_batch_gives_zero_loss():
     h1 = torch.zeros((0, 4), dtype=torch.bfloat16)
     z = torch.zeros(0)
     s, loss, cnt = ht.head_tail_forward(
-        h1, torch.ones(4), torch.ones(1), z, z, None, True,
-        torch.zeros(1, dtype=torch.int32))
+        h1, torch.ones(4), torch.ones(1), z, z, None, True)
     assert s.shape == (0,) and float(loss) == 0.0 and float(cnt) == 0.0
 
 

@@ -264,6 +264,20 @@ def test_fit_mse_l2_trajectory_matches_jax(monkeypatch):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=5e-3)
 
 
+def test_fit_mse_l2_trajectory_matches_jax_deeper_head(monkeypatch):
+    """The same with a 3-deep head: its tail (K6's plain version) takes the
+    last hidden layer's bf16(relu(...)) and the l2 term's gradients."""
+    monkeypatch.setattr(train, "_epoch_orders", jax_orders)
+    win, _ = toy_task(n=600, seed=5)
+    y = np.where((win == ord("W")).any(axis=1), 1.5, -0.5).astype(np.float32)
+    kw = dict(epochs=1, batch_size=128, seed=3, l2=1e-3,
+              params=init_params(K, seed=6, hidden=32, depth=3))
+    want = jax_train.fit(win, y, **kw)
+    got = cpu_fit(win, y, **kw)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=5e-3)
+
+
 # ---- K4's plain version, the wrapper and the autograd Function
 
 

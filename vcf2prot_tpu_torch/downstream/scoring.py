@@ -33,7 +33,7 @@ from torch import nn
 
 from ..runtime.build import check_launch, load_kernels
 from ..runtime.pack import pad_to_bucket
-from .head_tail import HeadTail, batch_loss
+from .head_tail import HeadTail
 from .peptides import (
     ALPHABET,
     VOCAB,
@@ -432,24 +432,42 @@ def fold_table(embed, w1) -> torch.Tensor:
     ).reshape(k * VOCAB, h_dim).to(torch.bfloat16).contiguous()
 
 
-def later_layers(h1, layers) -> torch.Tensor:
-    """fp32 scores ``[M]`` of first-layer activations ``h1`` (bf16) through
-    ``layers``, ``[(w, b), ...]`` with ``w`` fp32 holding bf16 values: each
-    a product of bf16-valued operands in fp32, plus ``b``, with ReLU
-    between layers. Serving (:meth:`ScoringHead.rest`) and training
-    (:class:`TrainableHead`) share it, so the two cannot skew."""
-    if h1.device.type == "cuda" and tf32_matmul_on():
+def _require_fp32_products(t) -> None:
+    """Raise when fp32 products of CUDA tensors like ``t`` may run in
+    TF32: the scoring head's products need full fp32."""
+    if t.device.type == "cuda" and tf32_matmul_on():
         raise RuntimeError(
             "TF32 is enabled for fp32 products "
             "(torch.backends.cuda.matmul.allow_tf32 or "
             "torch.set_float32_matmul_precision); the scoring head "
             "needs full fp32 products"
         )
-    h = h1.float()
-    for j, (w, b) in enumerate(layers):
-        out = h.to(torch.bfloat16).float() @ w + b
-        h = out if j == len(layers) - 1 else torch.relu(out)
-    return h[:, 0]
+
+
+def hidden_layers(h1, layers) -> torch.Tensor:
+    """The last hidden activations of first-layer activations ``h1``
+    (bf16) through ``layers``, ``[(w, b), ...]`` with ``w`` fp32 holding
+    bf16 values: each ``relu(bf16(h) @ w + b)``, a product of bf16-valued
+    operands in fp32; ``h1`` itself when ``layers`` is empty. Serving
+    (:func:`later_layers`) and training (:meth:`TrainableHead.loss`, whose
+    output layer is K6) share it, so the two cannot skew."""
+    if not layers:
+        return h1
+    _require_fp32_products(h1)
+    h = h1
+    for w, b in layers:
+        h = torch.relu(h.to(torch.bfloat16).float() @ w + b)
+    return h
+
+
+def later_layers(h1, layers) -> torch.Tensor:
+    """fp32 scores ``[M]`` of first-layer activations ``h1`` (bf16) through
+    ``layers``: :func:`hidden_layers` of all but the last, then the last,
+    the ``[H, 1]`` output, as ``bf16(h) @ w + b`` with no ReLU."""
+    h = hidden_layers(h1, layers[:-1])
+    _require_fp32_products(h)
+    w, b = layers[-1]
+    return (h.to(torch.bfloat16).float() @ w + b)[:, 0]
 
 
 class ScoringHead(nn.Module):
@@ -535,8 +553,8 @@ class TrainableHead(nn.Module):
     The forward is :class:`ScoringHead`'s: the fold and every bf16 cast run
     inside the graph, layer 1 is :class:`WindowLayer1` (K3, with K4 as its
     gradient), the later layers :func:`later_layers`. Training takes a
-    batch's loss from :meth:`loss`, which for a 1-deep head runs the output
-    layer, the loss and their gradients as K6.
+    batch's loss from :meth:`loss`, which runs the output layer, the loss
+    and their gradients as K6, whatever the head's depth.
 
     The parameters are views of one flat fp32 buffer, ``flat``, in their
     order, and their gradients views of a second, ``flat_grad``, set once
@@ -565,8 +583,6 @@ class TrainableHead(nn.Module):
         device = params[0][1].device
         self.flat = torch.empty(n, dtype=torch.float32, device=device)
         self.flat_grad = torch.zeros(n, dtype=torch.float32, device=device)
-        # K6's block ticket, 0 between launches
-        self.tail_ticket = torch.zeros(1, dtype=torch.int32, device=device)
         self.grads = {}
         off = 0
         with torch.no_grad():
@@ -615,31 +631,31 @@ class TrainableHead(nn.Module):
         device (:meth:`_layer1`, then :func:`later_layers`)."""
         return later_layers(self._layer1(windows), self._later())
 
-    def _later(self) -> list:
-        """:func:`later_layers`' ``[(w, b), ...]``, each later weight through
-        its bf16 cast."""
+    def _later(self, names=None) -> list:
+        """:func:`later_layers`' ``[(w, b), ...]`` of the layers ``names``
+        (all after the first by default), each weight through its bf16
+        cast."""
         return [(getattr(self, n).to(torch.bfloat16).float(),
-                 getattr(self, "b" + n[1:])) for n in self.names[1:]]
+                 getattr(self, "b" + n[1:]))
+                for n in (self.names[1:] if names is None else names)]
 
     def loss(self, windows, y, m, binary: bool, count=None) -> torch.Tensor:
         """The masked mean loss of a batch (``head_tail.batch_loss`` of
         :meth:`forward`'s scores): u8 windows ``[B, k]``, fp32 labels
         ``y`` and mask ``m`` ``[B]``, ``count`` the whole batch's mask count
-        (None: ``m``'s sum). A 1-deep head (``w1``, ``w2``) takes K6
-        (:class:`~vcf2prot_tpu_torch.downstream.head_tail.HeadTail`), whose
-        backward adds ``w2``'s and ``b2``'s gradients into their views of
-        ``flat_grad`` itself; a deeper one :func:`later_layers` and
-        ``batch_loss``. The choice is the head's shape's alone."""
-        h1 = self._layer1(windows)
-        if len(self.names) == 2:
-            out = self.names[1]
-            bias = "b" + out[1:]
-            return HeadTail.apply(h1, getattr(self, out),
-                                  getattr(self, bias), y, m, count, binary,
-                                  self.grads[out], self.grads[bias],
-                                  self.tail_ticket)
-        return batch_loss(later_layers(h1, self._later()), y, m, binary,
-                          count)
+        (None: ``m``'s sum). The hidden layers run as :func:`hidden_layers`;
+        the output layer, the loss and their gradients as K6
+        (:class:`~vcf2prot_tpu_torch.downstream.head_tail.HeadTail`) on
+        the last hidden activations in bf16, whose gradient flows back
+        through that cast; K6's backward adds the output layer's ``w`` and
+        ``b`` gradients into their views of ``flat_grad`` itself."""
+        h = hidden_layers(self._layer1(windows),
+                          self._later(self.names[1:-1]))
+        out = self.names[-1]
+        bias = "b" + out[1:]
+        return HeadTail.apply(h.to(torch.bfloat16), getattr(self, out),
+                              getattr(self, bias), y, m, count, binary,
+                              self.grads[out], self.grads[bias])
 
 
 def score_windows(windows, head: ScoringHead) -> torch.Tensor:

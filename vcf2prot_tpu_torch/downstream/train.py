@@ -25,8 +25,9 @@ device work with no host wait from the first step to the final fetch: the
 data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
 the rows into static epoch buffers on the device (:func:`_epoch_loop`);
 one training step (the batch picked from those buffers by a step count on
-the device, the forward and the loss, the backward through K3, the
-products (or, for a 1-deep head, K6 both ways) and K4, then K5;
+the device, the forward and the loss, the backward through K3, the hidden
+layers' products, K6 both ways (the output layer and the loss) and K4,
+then K5;
 :func:`_step_fn`) is captured in a CUDA graph and
 replayed once per batch (:class:`CapturedStep`); each step's loss lands in
 a device tensor, and the weights and losses are fetched once, at the end.
@@ -111,8 +112,8 @@ def train_step(replicas, opt, shards, binary: bool,
     one per shard; a single-device fit has one): ``replicas[i]`` takes
     ``shards[i] = (w, y, m, count)``, the u8 windows ``[B, k]``, labels
     and mask of its rows and ``count``, the whole batch's mask count (None:
-    ``m.sum()``), its loss from :meth:`TrainableHead.loss` (K6 for a
-    1-deep head). The other replicas' flat gradients are added to the
+    ``m.sum()``), its loss from :meth:`TrainableHead.loss` (K6 for the
+    output layer and the loss). The other replicas' flat gradients are added to the
     first's in shard order, ``opt`` (:class:`Adam` in a fit) steps the
     first replica, whose weights are then copied to the others. Returns the
     sum of the shards' losses on the first replica's device. Nothing waits

@@ -1,9 +1,10 @@
-"""Compare versions of K1 (the executor), K2 (the validator) or K5 (adam)
-on one card.
+"""Compare versions of K1 (the executor), K2 (the validator), K5 (adam) or
+K6 (the head's tail) on one card.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k5 OLD.cu NEW.cu [...]
+    python3 -m vcf2prot_tpu_torch.utils.kernel_ab k6 OLD.cu NEW.cu [...]
 
 Each source holds the kernel's C entry point (``v2p_segmented_copy_i32``,
 the ABI of ``csrc/executor.cu``, or ``v2p_validate_i32``, that of
@@ -32,6 +33,16 @@ and 674,465), checked bit for bit against ``adam_update_reference`` over
 K5_STEPS steps, then is timed in the same order A, B, ..., B, A both
 launched alone and inside a CUDA graph of INNER launches (as a captured
 training step runs it).
+
+K6's sources hold ``v2p_head_tail_fwd`` and ``v2p_head_tail_bwd`` (the
+ABI of ``csrc/head_tail.cu``; its first design is kept as
+``chip_archive/head_tail_first.cu``). No cohort: each version runs the
+tail of a 128x1 head (K3's h1) and of a 512x3 head (its last hidden
+layer, 512 wide) on K6_ROWS rows of random windows, binary labels, K6_PAD
+rows masked. A source with the text of ``csrc/head_tail.cu`` is held bit
+for bit to the plain versions; any other (the first design, a variant
+summing in another order) within K6_TOL of a float64 reference. Each is then timed A, B, ..., B, A each way, launched alone and
+in a CUDA graph.
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
 """
@@ -52,16 +63,27 @@ from . import roofline
 
 REPS, INNER = 10, 10
 ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32",
-           "k5": "v2p_adam"}
+           "k5": "v2p_adam",
+           "k6": ("v2p_head_tail_fwd", "v2p_head_tail_bwd")}
 CHUNKS = (256 << 20, 128 << 20)
 # K5's heads (hidden width, depth) and its checked steps a version
 K5_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
 K5_STEPS = 3
+# K6's heads (hidden width, depth), rows (a training batch) and masked rows
+K6_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
+K6_ROWS, K6_PAD = 4096, 37
+# a version that sums in another order than the plain version, against
+# float64: s and the loss within 1e-5 (relative to the largest |s|, and to
+# the loss), b2's gradient within 1e-4, dh and w2's gradient within one
+# bf16 ulp of their largest element (both rounded to bf16)
+K6_TOL = {"s": 1e-5, "loss": 1e-5, "dh": 2.0 ** -7, "gw2": 2.0 ** -8,
+          "gb2": 1e-4}
 
 
-def build_all(paths, entry: str, outdir: str) -> list:
-    """The C entry point ``entry`` of each source in ``paths``, each built
-    into a library of its own, all nvcc processes at once."""
+def build_all(paths, entry, outdir: str) -> list:
+    """The C entry point ``entry`` (or a tuple of them) of each source in
+    ``paths``, each built into a library of its own, all nvcc processes at
+    once."""
 
     def one(i, path):
         lib = os.path.join(outdir, f"ab_{i}.so")
@@ -70,10 +92,14 @@ def build_all(paths, entry: str, outdir: str) -> list:
              path], capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {path}:\n{proc.stderr[-3000:]}")
-        fn = getattr(ctypes.CDLL(lib), entry)
-        fn.argtypes = build.SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        return fn
+        loaded = ctypes.CDLL(lib)
+        fns = []
+        for name in (entry,) if isinstance(entry, str) else entry:
+            fn = getattr(loaded, name)
+            fn.argtypes = build.SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        return fns[0] if isinstance(entry, str) else tuple(fns)
 
     with ThreadPoolExecutor(len(paths)) as pool:
         return list(pool.map(lambda ip: one(*ip), enumerate(paths)))
@@ -298,17 +324,170 @@ def ab_k5(paths, fns, lr: float = 1e-3):
     return bad, out
 
 
+def is_current_k6(path: str) -> bool:
+    """Whether the source at ``path`` is the port's ``csrc/head_tail.cu``
+    (the order its plain versions repeat)."""
+    with open(path) as fh, open(os.path.join(build.CSRC,
+                                             "head_tail.cu")) as cur:
+        return fh.read() == cur.read()
+
+
+def _k6_inputs(hidden: int, depth: int):
+    """A head's tail inputs on the card: the bf16 activations K6 takes
+    (K3's h1, or the last hidden layer's), its output layer, binary labels
+    and a mask with K6_PAD rows masked, from seeded random windows."""
+    import numpy as np
+
+    from ..downstream.scoring import TrainableHead, hidden_layers, init_params
+
+    rng = np.random.default_rng(hidden + depth)
+    head = TrainableHead.from_params(init_params(
+        9, seed=1, hidden=hidden, depth=depth)).to("cuda")
+    alphabet = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX.", np.uint8)
+    win = torch.from_numpy(alphabet[rng.integers(
+        0, len(alphabet), (K6_ROWS, 9))]).to("cuda")
+    with torch.no_grad():
+        h = hidden_layers(head._layer1(win), head._later(
+            head.names[1:-1])).to(torch.bfloat16).contiguous()
+    out = head.names[-1]
+    w2 = getattr(head, out).detach().reshape(-1).contiguous()
+    b2 = getattr(head, "b" + out[1:]).detach().contiguous()
+    y = torch.from_numpy((rng.random(K6_ROWS) < 0.3).astype(
+        np.float32)).to("cuda")
+    m = torch.ones(K6_ROWS, device="cuda")
+    m[-K6_PAD:] = 0.0
+    return h, w2, b2, y, m
+
+
+def _k6_float64(h, w2, b2, y, m, g_loss):
+    """K6's function in float64 (binary labels): s, the loss, dh and the
+    output layer's gradients."""
+    w2b = w2.to(torch.bfloat16).double()
+    hd, yd, md = h.double(), y.double(), m.double()
+    s = hd @ w2b + b2.double()
+    per = (-yd * torch.nn.functional.logsigmoid(s)
+           - (1 - yd) * torch.nn.functional.logsigmoid(-s))
+    cnt = md.sum().clamp(min=1.0)
+    loss = (per * md).sum() / cnt
+    ds = g_loss.double() / cnt * md * (torch.sigmoid(s) - yd)
+    return {"s": s, "loss": loss, "dh": ds[:, None] * w2b, "gw2": hd.T @ ds,
+            "gb2": ds.sum().view(1)}
+
+
+def ab_k6(paths, fns):
+    """K6's versions (``fns``, their ``(v2p_head_tail_fwd,
+    v2p_head_tail_bwd)``) on the tails of K6_HEADS: each checked (module
+    docstring), then timed A, B, ..., B, A each way, launched alone and in
+    a CUDA graph. Prints a line a head; returns ``(versions that
+    disagreed, {head: {path: {"fwd_ms", "fwd_graph_ms", "bwd_ms",
+    "bwd_graph_ms": [...]}}})``."""
+    from ..downstream import head_tail as ht
+
+    current = [is_current_k6(path) for path in paths]
+    order = list(range(len(paths)))
+    order += order[::-1]
+    bad, out = 0, {}
+    for name, (hidden, depth) in K6_HEADS.items():
+        h, w2, b2, y, m = _k6_inputs(hidden, depth)
+        rows, h_dim = h.shape
+        g_loss = torch.tensor(0.75, device="cuda")
+        want64 = _k6_float64(h, w2, b2, y, m, g_loss)
+        # the first design's scratch: its 64-row tiles' partial sums
+        partial = torch.empty(-(-rows // 64) * (h_dim + 1), device="cuda")
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        s = torch.empty(rows, device="cuda")
+        loss, cnt = (torch.empty((), device="cuda") for _ in range(2))
+        dh = torch.empty((rows, h_dim), dtype=torch.bfloat16, device="cuda")
+        gw2 = torch.zeros(h_dim, device="cuda")
+        gb2 = torch.zeros(1, device="cuda")
+        times = {i: {key: [] for key in ("fwd_ms", "fwd_graph_ms", "bwd_ms",
+                                         "bwd_graph_ms")} for i in order}
+        for i in order:
+            fwd, bwd = fns[i]
+
+            def forward(fwd=fwd):
+                return fwd(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                           y.data_ptr(), m.data_ptr(), None, rows, h_dim, 1,
+                           partial.data_ptr(), s.data_ptr(), loss.data_ptr(),
+                           cnt.data_ptr(), ticket.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+
+            def backward(bwd=bwd):
+                return bwd(h.data_ptr(), w2.data_ptr(), y.data_ptr(),
+                           m.data_ptr(), s.data_ptr(), cnt.data_ptr(),
+                           g_loss.data_ptr(), rows, h_dim, 1,
+                           partial.data_ptr(), dh.data_ptr(), gw2.data_ptr(),
+                           gb2.data_ptr(), ticket.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+
+            gw2.zero_()
+            gb2.zero_()
+            for what, rc in (("forward", forward()), ("backward", backward())):
+                if rc:
+                    raise RuntimeError(f"{paths[i]}: K6 {what} launch failed, "
+                                       f"cudaError_t {rc}")
+            torch.cuda.synchronize()
+            got = {"s": s, "loss": loss, "dh": dh, "gw2": gw2, "gb2": gb2}
+            if not current[i]:
+                scale = {"s": want64["s"].abs().max(),
+                         "loss": want64["loss"].abs()}
+                errs = {key: float((got[key].double() - want64[key]).abs()
+                                   .max() / scale.get(
+                                       key, want64[key].abs().max()))
+                        for key in got}
+                agrees = all(errs[key] <= K6_TOL[key] for key in errs)
+                what = "float64 within K6_TOL: " + ", ".join(
+                    f"{key} {err:.2e}" for key, err in errs.items())
+            else:
+                rs, rloss, rcnt = ht.head_tail_forward_reference(
+                    h, w2, b2, y, m, None, True)
+                rgw2, rgb2 = torch.zeros_like(gw2), torch.zeros_like(gb2)
+                rdh = ht.head_tail_backward_reference(
+                    h, w2, y, m, rs, rcnt, g_loss, True, rgw2, rgb2)
+                agrees = all(torch.equal(a, b) for a, b in zip(
+                    (s, loss, cnt, dh, gw2, gb2),
+                    (rs, rloss, rcnt, rdh, rgw2, rgb2)))
+                what = "bit-equal to the plain version"
+            agrees = agrees and int(ticket.item()) == 0
+            if not agrees:
+                bad += 1
+                what = "NOT " + what
+            print(f"{paths[i]} K6 {name} tail: {what}")
+            times[i]["fwd_ms"].append(median_ms(forward))
+            times[i]["fwd_graph_ms"].append(graph_ms(forward))
+            times[i]["bwd_ms"].append(median_ms(backward))
+            times[i]["bwd_graph_ms"].append(graph_ms(backward))
+        out[name] = {paths[i]: times[i] for i in range(len(paths))}
+        bounds = [roofline.head_tail_bound_ms(rows, h_dim, part)
+                  for part in ("forward", "backward")]
+        print(f"K6 {name} tail ({rows} rows, {h_dim} wide; forward alone / "
+              f"in a CUDA graph, backward alone / in a CUDA graph, ms, A B B "
+              f"A): " + "; ".join(
+                  f"{paths[i]} " + " | ".join(
+                      ", ".join(f"{times[i][key][j]:.4f}" for key in
+                                ("fwd_ms", "fwd_graph_ms", "bwd_ms",
+                                 "bwd_graph_ms"))
+                      for j in range(len(times[i]["fwd_ms"])))
+                  for i in range(len(paths)))
+              + f" against bounds of {bounds[0][0]:.6f} / {bounds[1][0]:.6f} "
+              f"ms by {bounds[0][1]}")
+        del h, partial, dh
+        torch.cuda.empty_cache()
+    return bad, out
+
+
 def main(argv) -> int:
-    k5 = argv[:1] == ["k5"]
-    if (not torch.cuda.is_available() or len(argv) < (2 if k5 else 4)
+    no_cohort = argv[:1] in (["k5"], ["k6"])
+    if (not torch.cuda.is_available() or len(argv) < (2 if no_cohort else 4)
             or argv[0] not in ENTRIES):
         print(__doc__, file=sys.stderr)
         return 2
     print(card())
-    if k5:
+    if no_cohort:
+        run = ab_k5 if argv[0] == "k5" else ab_k6
         with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
-            fns = build_all(argv[1:], ENTRIES["k5"], outdir)
-            return 1 if ab_k5(argv[1:], fns)[0] else 0
+            fns = build_all(argv[1:], ENTRIES[argv[0]], outdir)
+            return 1 if run(argv[1:], fns)[0] else 0
     kernel, vcf, fasta, paths = argv[0], argv[1], argv[2], argv[3:]
     blob, flat = _cohort(vcf, fasta)
     with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
