@@ -11,8 +11,9 @@ failing the run with a non-zero exit:
    computed from (``vcf2prot_tpu_torch/utils/roofline.py``), torch / CUDA /
    nvcc / Triton;
 2. build: K1 (executor), K2 (validator), K3 (window scorer), K4 (its
-   gradient), K5 (adam) and K6 (the head's tail) through
-   ``runtime/build.py``, one nvcc per source, all started together;
+   gradient), K5 (adam), K6 (the head's tail) and K7 (the hidden layers
+   after the first) through ``runtime/build.py``, one nvcc per source, all
+   started together;
 3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
    the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
    and int64, with combined aligned and at an odd address; K2 count-equal
@@ -30,7 +31,8 @@ failing the run with a non-zero exit:
    at the chain's block size (its launch alone, its wrapper with the
    bounds check, ``F.embedding_bag`` over the same rows as the
    yardstick, the plain version) beside its bound; the chain's stages
-   timed on that chunk;
+   timed on that chunk, and its products through a random 512x3 head (K7
+   and the ``[H, 1]`` output product, block by block);
 4. main path: the port's CLI ``-g gpu -s -v`` on a 1,536-sample x
    2,000-transcript cohort (>= 2 chunks), byte-compared with the port's
    own host engine ``-g mt -s``;
@@ -95,6 +97,17 @@ failing the run with a non-zero exit:
    the plain versions beside the bound, and both wrappers in a graph
    against the torch ops they replace (the output product, ``batch_loss``
    and their autograd) captured in a graph;
+8d. K7 (the hidden layers after the first: forward, input gradient,
+   weight gradient on the bf16 tensor cores) against its plain versions on
+   the card over ``K7_SHAPES`` (4,096 and 4,095 rows x 512 -> 512 and 128
+   -> 256, a 131,072-row serving block, 1,000 x 384 -> 640, 300 x 12 ->
+   20) and 4,095 x 128 -> 256 in views 2 bytes past alignment: each kernel
+   twice, bit-equal; the bf16 outputs within ``K7_TOL`` (the share that
+   differs printed), db bit-equal; a probe of subnormal sums; at 4,096 x
+   512 -> 512 and the serving block each kernel's launches alone
+   (``ms``) and its wrapper in a CUDA graph (``graph_ms``) beside its
+   bound, its plain version and ``torch.matmul`` of the bf16 operands
+   (``library_ms``);
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -105,12 +118,14 @@ failing the run with a non-zero exit:
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
    synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched once
    a step (replays counted), K6 once forward and once backward a step on
-   every head; fit walls;
+   every head, K7's three kernels once a step for each of the 512x3 head's
+   two hidden layers after the first; fit walls;
 9b. step times: each head's captured step against its eager one
-   (``capture=False``) by CUDA events, beside the step's bound; for the
-   128x1 and 512x3 heads the host calls, device kernels and device busy
-   time a step of the epoch loop (``torch.profiler``), then phase 9's fits
-   captured and eager, A B B A, with bit-equal weights;
+   (``capture=False``) by CUDA events, beside the step's bound, with the
+   shares of K4, K6 and K7; for the 128x1 and 512x3 heads the host
+   calls, device kernels and device busy time a step of the epoch loop
+   (``torch.profiler``), then phase 9's fits captured and eager, A B B A,
+   with bit-equal weights;
 10. the trained 512x3 head saved with ``save_params`` and served by
    ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
    against ``-g mt``'s fp32 host report, and the training forward against
@@ -161,8 +176,10 @@ A mesh of one card named twice runs the sharded code paths and their
 kernels; it says nothing of multi-GPU scaling, and real multi-GPU and
 multi-node runs stay unverified.
 
-Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is the kernels' JSON summary, K1-K6 (launches
+Each path's launch counts are set to 0 just before it and read just after
+(K7 on the serving path: phase 7's random 512x3 head and phase 10's trained
+one).
+The line before the last is the kernels' JSON summary, K1-K7 (launches
 summed over the paths, a captured step's counted at each replay; ``ms``
 each kernel's launches alone and ``wrapper_ms`` its wrapper's, back to
 back; each kernel's bound from
@@ -172,9 +189,10 @@ same; K5 and K6 also in a CUDA graph, ``graph_ms``, K5 beside
 ``library_graph_ms``, torch's fused adam captured, both beside their first
 designs' ``earlier_ms`` / ``earlier_graph_ms``, K6 beside
 ``replaced_graph_ms``, the torch ops it replaces captured, and its 512x3
-tail's numbers as ``wide_*``, null where they do not apply); the last
-line is ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
-package ``vcf2prot_tpu``.
+tail's numbers as ``wide_*``, K7's forward on a serving block as
+``block_*``, null where they do not apply); the last line is ``{"ok":
+true, "device": {...}}``. Imports neither JAX nor the JAX package
+``vcf2prot_tpu``.
 """
 from __future__ import annotations
 
@@ -278,6 +296,23 @@ K6_MISALIGNED = "128x1"
 K6_AB_HEADS = ("128x1", "512x3")
 # K6's first design, timed beside the current one (phase 8c)
 K6_EARLIER = os.path.join(ROOT, "chip_archive", "head_tail_first.cu")
+# K7's layers (phase 8d), rows x inputs -> outputs: a training batch and an
+# odd one at the 512x3 head's hidden layers and at a 128 -> 256 layer, a
+# serving block of a 512-wide head (``dense_blk``'s 131,072 rows), a
+# non-square layer (M, K and N all apart, so that a transposed fragment
+# cannot hide), and an odd width (the element-by-element path); the layer
+# also run in views 2 bytes past alignment; the layers timed. K7_TOL, its
+# tolerance against its plain versions (``dense.bf16_within``): a bf16
+# output equal or one ulp apart (the tensor cores' fp32 sums are not the
+# plain version's rounded adds, so the two may round apart), or, where a
+# sum cancels, within twice the fp32 reassociation bound of its terms plus
+# an ulp; db bit-equal (summed in the plain version's order)
+K7_SHAPES = ((4096, 512, 512), (4095, 512, 512), (4096, 128, 256),
+             (4095, 128, 256), (131072, 512, 512), (1000, 384, 640),
+             (300, 12, 20))
+K7_MISALIGNED = (4095, 128, 256)
+K7_TIMED = ((4096, 512, 512), (131072, 512, 512))
+K7_TOL = "bf16 equal or 1 ulp, or 2x the fp32 reassociation bound + 1 ulp"
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
 # seconds a multi-host child may take (phase 16)
@@ -789,6 +824,53 @@ def k3_shapes(card):
           f"{K3_LONG_ROWS}, x int32/int64 positions at odd byte offsets)")
 
 
+def chain_wide_products(card, tape, pos):
+    """The chunk's candidates through a random 512x3 head, as
+    ``ScoringHead.score_positions`` scores them: each block's K3, then its
+    hidden layers after the first (K7) and its ``[H, 1]`` output product,
+    each timed by CUDA events around it and summed over the blocks (the
+    second of two passes), beside K7's bound."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+    from vcf2prot_tpu_torch.utils import roofline
+
+    head = sc.ScoringHead.from_params(
+        sc.init_params(NEO_K, seed=5, **HEADS["512x3"])).cuda()
+    layers = [(getattr(head, f"w{i}"), getattr(head, f"b{i}"))
+              for i in head.layers]
+    m = pos.numel()
+    blk = head.block_rows(m)
+    for _ in range(2):
+        events = []
+        for s in range(0, m, blk):
+            h1 = sc._launch_layer1(tape, pos[s:s + blk], NEO_K, head.table,
+                                   head.b1)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+            h = sc.hidden_layers(h1, layers[:-1])
+            marks[1].record()
+            sc.later_layers(h, layers[-1:])
+            marks[2].record()
+            events.append(marks)
+            del h1, h
+        torch.cuda.synchronize()
+    k7 = sum(a.elapsed_time(b) for a, b, _c in events)
+    out = sum(b.elapsed_time(c) for _a, b, c in events)
+    bounds = [roofline.dense_bound_ms(min(blk, m - s), *w.shape, "forward")
+              for s in range(0, m, blk) for w, _b in layers[:-1]]
+    bound = sum(ms for ms, _by in bounds)
+    by = " and ".join(sorted({by for _ms, by in bounds}))
+    print(f"chain products per 128 MiB chunk on {card}, random 512x3 head "
+          f"({m} candidates, {-(-m // blk)} blocks of <= {blk}; CUDA events "
+          f"around each block's layers, summed): K7 ({len(layers) - 1} "
+          f"layers) {k7:.4f} ms ({100 * bound / k7:.1f}% of its {bound:.4f} "
+          f"ms bound by {by}), the [H, 1] output product {out:.4f} ms, "
+          f"both {k7 + out:.4f} ms")
+    del head
+    torch.cuda.empty_cache()
+
+
 def phase_k3(card, blob, flat):
     """K3 against its plain version on the candidate windows of the main
     cohort's first 128 MiB chunk and over K3_WIDTHS x K3_KS x K3_ROWS, its
@@ -949,6 +1031,7 @@ def phase_k3(card, blob, flat):
                   fetched.numel()).items()}
     print("chain stage bounds (ms): " + "; ".join(
         f"{k} {b:.4f} by {by}" for k, (b, by) in bounds.items()))
+    chain_wide_products(card, tape, pos)
     t_run = []
     eng = dr.DeviceNeoantigenEngine(blob, NEO_K, top=NEO_TOP)
     for _ in range(3):
@@ -1882,6 +1965,247 @@ def phase_k6(card):
     return measured
 
 
+def _k7_inputs(rows, k, n, gen, misaligned=False):
+    """A K7 layer's inputs on the card, from ``gen``: x (bf16 ``[rows,
+    k]``), w (bf16 ``[k, n]``, He-scaled), b (fp32 ``[n]``) and an
+    incoming gradient dy (bf16 ``[rows, n]``); with ``misaligned``, each
+    bf16 array in a view 2 bytes past 16-byte alignment (the kernels'
+    element-by-element path)."""
+    import torch
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=DEV) * scale
+
+    x = normal(rows, k).to(torch.bfloat16)
+    w = normal(k, n, scale=(2.0 / max(k, 1)) ** 0.5).to(torch.bfloat16)
+    b = normal(n, scale=0.1)
+    dy = normal(rows, n, scale=1e-2).to(torch.bfloat16)
+    if misaligned:
+        x, w, dy = (_k6_misaligned(t) for t in (x, w, dy))
+    return x, w, b, dy
+
+
+def _k7_stats(got, want, slack):
+    """``(all within K7_TOL, share of elements that differ, largest ulps,
+    elements more than an ulp apart, max |d|)`` of a K7 output (bf16)
+    against its plain version's."""
+    from vcf2prot_tpu_torch.downstream.dense import bf16_ulps, bf16_within
+
+    ulps = bf16_ulps(got, want)
+    return (bool(bf16_within(got, want, slack).all()),
+            float((ulps != 0).float().mean()), int(ulps.max()),
+            int((ulps > 1).sum()),
+            float((got.float() - want.float()).abs().max()))
+
+
+def _k7_case(what, x, w, b, dy):
+    """K7's three kernels against their plain versions on one layer's
+    inputs: each launched twice (bit-equal), its bf16 outputs within
+    K7_TOL, db bit-equal; returns y and the stats by kernel."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import dense as dn
+
+    rows, k = x.shape
+    n = w.shape[1]
+    eps = 2.0 ** -24
+    xa, wa = x.float().abs(), w.float().abs()
+    y, y2 = (dn.dense_forward(x, w, b) for _ in range(2))
+    want = dn.dense_forward_reference(x, w, b)
+    check(torch.equal(y, y2), f"{what}: two forward launches differ")
+    stats = {"forward": _k7_stats(
+        y, want, 2 * (k + 1) * eps * (xa @ wa + b.abs()))}
+    # the gradients from the kernel's y, which both sides take
+    dz = torch.where(y > 0, dy.float(), 0.0).abs()
+    dx, dx2 = (dn.dense_backward_input(w, y, dy) for _ in range(2))
+    check(torch.equal(dx, dx2), f"{what}: two input-gradient launches differ")
+    stats["input"] = _k7_stats(dx, dn.dense_backward_input_reference(
+        w, y, dy), 2 * n * eps * (dz @ wa.t()))
+    sums = []
+    for fn in (dn.dense_backward_weight, dn.dense_backward_weight,
+               dn.dense_backward_weight_reference):
+        gw = torch.zeros((k, n), device=DEV)
+        gb = torch.zeros(n, device=DEV)
+        fn(x, y, dy, gw, gb)
+        sums.append((gw, gb))
+    check(torch.equal(sums[0][0], sums[1][0])
+          and torch.equal(sums[0][1], sums[1][1]),
+          f"{what}: two weight-gradient launches differ")
+    check(torch.equal(sums[0][1], sums[2][1]),
+          f"{what}: db differs from the plain version's (max |d| "
+          f"{float((sums[0][1] - sums[2][1]).abs().max())})")
+    stats["weight"] = _k7_stats(
+        sums[0][0].to(torch.bfloat16), sums[2][0].to(torch.bfloat16),
+        2 * rows * eps * (xa.t() @ dz))
+    torch.cuda.synchronize()
+    for part, (ok, share, most, over, err) in stats.items():
+        check(ok, f"{what}: K7 {part} outside its tolerance of the plain "
+                  f"version ({over} elements more than an ulp apart, up to "
+                  f"{most} ulps, max |d| {err})")
+    for t in (y, dx, sums[0][0], sums[0][1]):
+        check(bool(torch.isfinite(t.float()).all()), f"{what}: not finite")
+    return y, stats
+
+
+def _k7_subnormal_probe():
+    """What K7 and its plain version give for sums that are fp32
+    subnormals: 2**-132 (a bf16 subnormal) and 2**-140 (below half of
+    bf16's smallest, 2**-133): whether the card's tensor cores keep them,
+    and where the bf16 output's ReLU mask (y > 0) leaves the fp32 one (z
+    > 0)."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import dense as dn
+
+    out = []
+    for e in (-66, -70):
+        x = torch.zeros((16, 16), device=DEV)
+        w = torch.zeros((16, 8), device=DEV)
+        x[0, 0], w[0, 0] = 2.0 ** e, 2.0 ** e
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        b = torch.zeros(8, device=DEV)
+        got = float(dn.dense_forward(x, w, b)[0, 0])
+        plain = float(dn.dense_forward_reference(x, w, b)[0, 0])
+        z = float((x.float() @ w.float())[0, 0])
+        out.append(f"a sum of 2**{2 * e}: K7 y {got!r}, plain y {plain!r} "
+                   f"(fp32 z {z!r}; mask y > 0 {got > 0}, z > 0 {z > 0})")
+    return "; ".join(out)
+
+
+def phase_k7(card):
+    """8d: K7 (the hidden layers after the first, ``csrc/dense.cu``)
+    against its plain versions on the card over K7_SHAPES, and K7_MISALIGNED
+    again in views 2 bytes past alignment: each kernel launched twice,
+    bit-equal; the forward's and the two gradients' bf16 outputs within
+    K7_TOL of the plain versions (the share that differs printed), db
+    bit-equal; a probe of subnormal sums. At K7_TIMED each kernel's
+    launches alone back to back (``ms``) and its wrapper in a CUDA graph
+    (``graph_ms``), beside its bound, its plain version and
+    ``torch.matmul`` of the bf16 operands (``library_ms``, the yardstick,
+    which the port never calls); the serving block's forward as
+    ``block_*``. Returns the three kernels' numbers."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import dense as dn
+    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
+    from vcf2prot_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(41)
+    worst = {part: [0.0, 0, 0] for part in roofline.DENSE_PARTS}
+    cases = [(shape, False) for shape in K7_SHAPES] + [(K7_MISALIGNED, True)]
+    for (rows, k, n), misaligned in cases:
+        what = (f"K7 {rows} x {k} -> {n}"
+                + (", 2 bytes past alignment" if misaligned else ""))
+        _y, stats = _k7_case(what, *_k7_inputs(rows, k, n, gen, misaligned))
+        for part, (_ok, share, most, over, _err) in stats.items():
+            w = worst[part]
+            worst[part] = [max(w[0], share), max(w[1], most), w[2] + over]
+        print(f"{what} on {card}: " + "; ".join(
+            f"{part} {100 * share:.3f}% differ, up to {most} ulp"
+            for part, (_ok, share, most, _o, _e) in stats.items())
+            + "; db bit-equal; two launches bit-equal")
+    print(f"K7 vs plain on {card}: {len(cases)} cases, within {K7_TOL} "
+          f"(at most share differing / largest ulps / elements past an "
+          f"ulp): "
+          + "; ".join(f"{p} {100 * s:.3f}% / {u} / {o}"
+                      for p, (s, u, o) in worst.items()))
+    print(f"K7 subnormal sums on {card}: {_k7_subnormal_probe()}")
+
+    lib = load_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    measured = {"dense_forward": {}, "dense_backward_input": {},
+                "dense_backward_weight": {}}
+    for rows, k, n in K7_TIMED:
+        x, w, b, dy = _k7_inputs(rows, k, n, gen)
+        y = dn.dense_forward(x, w, b)
+        want = dn.dense_forward_reference(x, w, b)
+        dzb = torch.where(y > 0, dy, torch.zeros_like(dy))
+        parts = {
+            "dense_forward": dict(
+                part="forward", out=torch.empty_like(y),
+                launch=lambda o: lib.v2p_dense_forward(
+                    x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
+                    rows, k, n, stream),
+                wrapper=lambda: dn.dense_forward(x, w, b),
+                plain=lambda: dn.dense_forward_reference(x, w, b),
+                library=lambda: x @ w,
+                err=float((y.float() - want.float()).abs().max()))}
+        if rows == K7_TIMED[0][0]:
+            gw = torch.zeros((k, n), device=DEV)
+            gb = torch.zeros(n, device=DEV)
+            slices, srows = dn.weight_slices(rows, k, n)
+            part = torch.empty(slices * (k * n + n), device=DEV)
+            dx = dn.dense_backward_input(w, y, dy)
+            gws = []
+            for fn in (dn.dense_backward_weight,
+                       dn.dense_backward_weight_reference):
+                gws.append(torch.zeros((k, n), device=DEV))
+                fn(x, y, dy, gws[-1], torch.zeros(n, device=DEV))
+            parts["dense_backward_input"] = dict(
+                part="input", out=torch.empty_like(x),
+                launch=lambda o: lib.v2p_dense_backward_input(
+                    w.data_ptr(), y.data_ptr(), dy.data_ptr(), o.data_ptr(),
+                    rows, k, n, stream),
+                wrapper=lambda: dn.dense_backward_input(w, y, dy),
+                plain=lambda: dn.dense_backward_input_reference(w, y, dy),
+                library=lambda: dzb @ w.t(),
+                err=float((dx.float() - dn.dense_backward_input_reference(
+                    w, y, dy).float()).abs().max()))
+            parts["dense_backward_weight"] = dict(
+                part="weight", out=None,
+                launch=lambda o: lib.v2p_dense_backward_weight(
+                    x.data_ptr(), y.data_ptr(), dy.data_ptr(), rows, k, n,
+                    slices, srows, part.data_ptr(),
+                    part[slices * k * n:].data_ptr(), gw.data_ptr(),
+                    gb.data_ptr(), stream),
+                wrapper=lambda: dn.dense_backward_weight(x, y, dy, gw, gb),
+                plain=lambda: dn.dense_backward_weight_reference(
+                    x, y, dy, gw, gb),
+                library=lambda: x.t() @ dzb,
+                err=float((gws[0] - gws[1]).abs().max()))
+        for name, p in parts.items():
+            out = p["out"]
+            ms, rc = _cuda_ms(lambda: p["launch"](out), inner=BACK_TO_BACK)
+            check_launch(rc, f"K7 {p['part']}")
+            graph = _graph_ms(p["wrapper"])
+            plain, _ = _cuda_ms(p["plain"], reps=3)
+            library, _ = _cuda_ms(p["library"], inner=BACK_TO_BACK)
+            bound, by = roofline.dense_bound_ms(rows, k, n, p["part"])
+            print(f"K7 {p['part']} {rows} x {k} -> {n} on {card}: launched "
+                  f"alone back to back {ms:.4f} ms, wrapper in a CUDA graph "
+                  f"{graph:.4f} ms ({100 * bound / graph:.1f}% of the "
+                  f"{bound:.6f} ms bound by {by}; "
+                  f"{2 * rows * k * n / graph / 1e9:.1f} TFLOP/s); "
+                  f"torch.matmul of the bf16 operands {library:.4f} ms; "
+                  f"plain {plain:.4f} ms; max |d| from plain {p['err']}")
+            numbers = dict(ms=ms, graph_ms=graph, plain_ms=plain,
+                           bound_ms=bound, bound_by=by, library_ms=library,
+                           max_abs_err=p["err"])
+            if rows == K7_TIMED[0][0]:
+                measured[name].update(numbers)
+            else:
+                measured[name].update({
+                    "block_" + key: v for key, v in numbers.items()
+                    if key not in ("bound_by", "max_abs_err")})
+        del x, w, b, dy, y, want, dzb, parts
+    torch.cuda.empty_cache()
+    return measured
+
+
+@contextlib.contextmanager
+def dense_counts():
+    """K7's launch counts from zero for the body, read into the dict it
+    yields when the body ends."""
+    from vcf2prot_tpu_torch.downstream.dense import KERNELS
+
+    counts = {}
+    for f in KERNELS:
+        f.launches = 0
+    yield counts
+    counts.update({f.__name__: f.launches for f in KERNELS})
+
+
 @contextlib.contextmanager
 def epoch_loop_watch(sync_error=True, profiler=None):
     """``downstream.train._epoch_loop`` (a single-device fit's epochs: the
@@ -1918,9 +2242,10 @@ def phase_train(card):
     training path), through the functions of tools/train_synth_mhc.py,
     each step a replay of its captured graph and every epoch loop under
     ``set_sync_debug_mode("error")``; returns the trained weights by head
-    and the path's K3, K4 and K5 launches (replays counted)."""
+    and the path's K3-K7 launches (replays counted)."""
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.adam import adam_update
+    from vcf2prot_tpu_torch.downstream.dense import KERNELS as DENSE_KERNELS
     from vcf2prot_tpu_torch.downstream.head_tail import (
         head_tail_backward,
         head_tail_forward,
@@ -1942,6 +2267,8 @@ def phase_train(card):
               batch_size=MHC_BATCH, device=DEV)
     window_layer1.launches = window_layer1_backward.launches = 0
     adam_update.launches = 0
+    for f in DENSE_KERNELS:
+        f.launches = 0
     aucs, trained, k6 = {}, {}, {}
     for name, shape in TRAIN_HEADS.items():
         head_tail_forward.launches = head_tail_backward.launches = 0
@@ -1966,7 +2293,8 @@ def phase_train(card):
                 "window_layer1_backward": window_layer1_backward.launches,
                 "adam_update": adam_update.launches,
                 "head_tail_forward": sum(f for f, _b in k6.values()),
-                "head_tail_backward": sum(b for _f, b in k6.values())}
+                "head_tail_backward": sum(b for _f, b in k6.values()),
+                **{f.__name__: f.launches for f in DENSE_KERNELS}}
     print(f"K6 launches by head (forward, backward; {steps} steps and "
           f"{train.CAPTURE_WARMUP} warm-up steps a fit): {k6}")
     # each fit: CAPTURE_WARMUP steps, then one replay a step (K3 also
@@ -1976,6 +2304,15 @@ def phase_train(card):
           == want <= launches["window_layer1"],
           f"training path launches {launches}: K4 and K5 not {want}, or K3 "
           f"fewer")
+    # K7 both ways once a step for each hidden layer after the first (the
+    # 512x3 head's two), its forward also in the holdouts' scoring
+    want = sum(shape["depth"] - 1 for shape in TRAIN_HEADS.values()) * (
+        steps + train.CAPTURE_WARMUP)
+    check(launches["dense_backward_input"]
+          == launches["dense_backward_weight"] == want
+          <= launches["dense_forward"],
+          f"training path launches {launches}: K7's gradients not {want}, "
+          f"or its forward fewer")
     check(aucs["128x1"] > aucs["8x1"],
           f"128x1 AUC {aucs['128x1']} not above 8x1 {aucs['8x1']}")
     print(f"training path launches (replays counted): {launches}")
@@ -2058,11 +2395,11 @@ def _fit_profile(win, labels, n_tr, shape, capture):
     return sum(calls.values()), kernels / steps, busy / steps, calls
 
 
-def phase_step_times(card, k4, k6):
+def phase_step_times(card, k4, k6, k7):
     """9b: the captured step against the eager one (``capture=False``):
     device time a step, host calls and device kernels a step, the shares of
-    K4 and K6, then phase 9's fits captured against eager, A B B A,
-    with their weights bit-equal; beside each head's bound from
+    K4, K6 and (512x3) K7, then phase 9's fits captured against eager, A B
+    B A, with their weights bit-equal; beside each head's bound from
     ``utils/roofline.py``."""
     import numpy as np
 
@@ -2093,6 +2430,14 @@ def phase_step_times(card, k4, k6):
               f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
               f"step; K6 both ways in a graph {k6_ms[name]:.4f} ms, "
               f"{100 * k6_ms[name] / step[name]['captured']:.1f}%")
+    # K7 a 512x3 step: its three kernels in a graph, for each of the two
+    # hidden layers after the first (all 512 -> 512 at MHC_BATCH rows)
+    layers = HEADS["512x3"]["depth"] - 1
+    k7_ms = layers * sum(v["graph_ms"] for v in k7.values())
+    print(f"512x3 step: K7 ({layers} layers x forward, input and weight "
+          f"gradients, each in a graph at {K7_TIMED[0]}) {k7_ms:.4f} ms, "
+          f"{100 * k7_ms / step['512x3']['captured']:.1f}% of the captured "
+          f"step")
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     for name in CAPTURE_HEADS:
         shape = TRAIN_HEADS[name]
@@ -2609,6 +2954,8 @@ def main():
         k6 = phase_k6(card)
         measured["head_tail_forward"] = k6["forward"]
         measured["head_tail_backward"] = k6["backward"]
+        k7 = phase_k7(card)
+        measured.update(k7)
         fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
                                       pairs=False)
         neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
@@ -2641,15 +2988,23 @@ def main():
         paths["sharded debug"] = phase_sharded_debug(workdir, *small)
         npz = os.path.join(workdir, "head_512x3.npz")
         np.savez(npz, **init_params(NEO_K, seed=5, **HEADS["512x3"]))
-        phase_wide(workdir, *small, npz, "random 512x3", HOST_ORACLE_TOL)
-        # the training path: K3 forward, K4 backward, K5, a captured step
+        # the serving path of a deeper head: K7 once a block and layer
+        with dense_counts() as counts:
+            phase_wide(workdir, *small, npz, "random 512x3", HOST_ORACLE_TOL)
+        paths["wide head"] = counts
+        # the training path: K3 forward, K4 backward, K5, K6, K7, a
+        # captured step
         trained, paths["training"] = phase_train(card)
         check(all(paths["training"].values()),
               f"a kernel of the training path never ran: {paths['training']}")
-        phase_step_times(card, k4, k6)
-        phase_serve_trained(card, workdir, *small, trained["512x3"])
+        phase_step_times(card, k4, k6, k7)
+        with dense_counts() as counts:
+            phase_serve_trained(card, workdir, *small, trained["512x3"])
+        paths["trained head served"] = counts
         phase_train_checks(card)
-        paths["dp training"] = phase_dp_train(card)
+        with dense_counts() as counts:
+            paths["dp training"] = phase_dp_train(card)
+        paths["dp training"].update(counts)
     meta = {
         "segmented_copy": ("vcf2prot_tpu_torch/csrc/executor.cu",
                            "vcf2prot_tpu/runtime/tpu_engine.py:119"),
@@ -2665,6 +3020,12 @@ def main():
                               "vcf2prot_tpu/downstream/train.py:109"),
         "head_tail_backward": ("vcf2prot_tpu_torch/csrc/head_tail.cu",
                                "vcf2prot_tpu/downstream/train.py:157"),
+        "dense_forward": ("vcf2prot_tpu_torch/csrc/dense.cu",
+                          "vcf2prot_tpu/downstream/scoring.py:152"),
+        "dense_backward_input": ("vcf2prot_tpu_torch/csrc/dense.cu",
+                                 "vcf2prot_tpu/downstream/train.py:157"),
+        "dense_backward_weight": ("vcf2prot_tpu_torch/csrc/dense.cu",
+                                  "vcf2prot_tpu/downstream/train.py:157"),
     }
     launches = dict.fromkeys(meta, 0)
     for counts in paths.values():
@@ -2684,7 +3045,9 @@ def main():
             "replaced_graph_ms", "pair_graph_ms", "wide_ms", "wide_graph_ms",
             "wide_earlier_ms", "wide_earlier_graph_ms", "wide_bound_ms",
             "wide_plain_ms", "wide_wrapper_ms", "wide_replaced_ms",
-            "wide_replaced_graph_ms", "wide_pair_graph_ms")
+            "wide_replaced_graph_ms", "wide_pair_graph_ms", "block_ms",
+            "block_graph_ms", "block_plain_ms", "block_bound_ms",
+            "block_library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

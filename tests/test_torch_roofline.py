@@ -104,11 +104,15 @@ def test_scorer_counts():
 # records them
 STEP_BOUNDS = {
     "128x1": (37_793, 1_058_204, 0.0003, (0.0026, "bytes"),
-              {"K3": (1_167_104, 4_718_592), "products": (1_065_472,
-                                                          1_048_576),
-               "products' gradients": (3_163_136, 2_097_152),
-               "K4": (2_264_064, 4_718_592), "K5": (1_058_204, 529_102)}),
-    "512x3": (674_465, 18_885_020, 0.0056, (0.1932, "operations"), None),
+              {"K3": (1_167_104, 4_718_592, 0), "K7": (0, 0, 0),
+               "K7's gradients": (0, 0, 0),
+               "products": (1_065_472, 1_048_576, 0),
+               "products' gradients": (3_163_136, 2_097_152, 0),
+               "K4": (2_264_064, 4_718_592, 0),
+               "K5": (1_058_204, 529_102, 0)}),
+    # K7's products on the tensor cores: bytes bound the step, where the
+    # same products at the fp32 peak gave 0.1932 ms
+    "512x3": (674_465, 18_885_020, 0.0056, (0.0365, "bytes"), None),
 }
 
 
@@ -122,15 +126,56 @@ def test_adam_and_training_step_bounds(head):
     bound, by = roofline.bound_ms(adam, roofline.adam_ops(n_params))
     assert (round(bound, 4), by) == (adam_ms, "bytes")
     costs = roofline.train_step_costs(params, 4096)
-    assert list(costs) == ["K3", "products", "products' gradients", "K4",
-                           "K5"]
+    assert list(costs) == ["K3", "K7", "K7's gradients", "products",
+                           "products' gradients", "K4", "K5"]
     if parts is not None:
         assert costs == parts
-    assert costs["K5"] == (adam, roofline.adam_ops(n_params))
+    assert costs["K5"] == (adam, roofline.adam_ops(n_params), 0)
     bound, by = roofline.train_step_bound_ms(params, 4096)
     assert (round(bound, 4), by) == step
     assert bound == roofline.bound_ms(
-        sum(b for b, _ in costs.values()), sum(o for _, o in costs.values()))[0]
+        sum(b for b, _, _ in costs.values()),
+        sum(o for _, o, _ in costs.values()),
+        sum(t for _, _, t in costs.values()))[0]
+    # the hidden layers' products: 2 rows n_in n_out on the tensor cores,
+    # three times a layer (forward, input and weight gradients)
+    hidden = [params[f"w{i}"].shape for i in range(2, depth + 1)]
+    assert costs["K7"][2] + costs["K7's gradients"][2] == sum(
+        3 * 2 * 4096 * a * b for a, b in hidden)
+
+
+@pytest.mark.parametrize("rows,k,n", [(4096, 512, 512), (131_072, 512, 512),
+                                      (300, 12, 20)])
+def test_dense_counts(rows, k, n):
+    """K7's bytes (bf16 operands and outputs, fp32 bias and gradients)
+    and operations, and its bounds at the training and serving shapes as
+    PERF.md records them."""
+    x, w, y = rows * k * 2, k * n * 2, rows * n * 2
+    assert roofline.dense_bytes(rows, k, n, "forward") == x + w + 4 * n + y
+    assert roofline.dense_bytes(rows, k, n, "input") == w + 2 * y + x
+    assert roofline.dense_bytes(rows, k, n, "weight") == (
+        x + 2 * y + 8 * (k * n + n))
+    for part in roofline.DENSE_PARTS:
+        fp32, tensor = roofline.dense_ops(rows, k, n, part)
+        assert tensor == 2 * rows * k * n
+        assert roofline.dense_bound_ms(rows, k, n, part) == roofline.bound_ms(
+            roofline.dense_bytes(rows, k, n, part), fp32, tensor)
+    want = {(4096, 512, 512): (0.0027, 0.0039, 0.0044),
+            (131_072, 512, 512): (0.0803, 0.1204, 0.1208)}.get((rows, k, n))
+    if want is not None:
+        assert tuple(round(roofline.dense_bound_ms(rows, k, n, part)[0], 4)
+                     for part in roofline.DENSE_PARTS) == want
+    # at a training batch the tensor cores would take 0.0022 ms
+    assert roofline.bound_ms(0, 0, 2 * 4096 * 512 * 512)[0] == pytest.approx(
+        2 * 4096 * 512 * 512 / 989.4e12 * 1e3)
+
+
+def test_tensor_operations_use_the_bf16_peak():
+    assert roofline.bound_ms(0, 0, 989.4e9) == (1.0, "operations")
+    assert roofline.bound_ms(0, 67e9, 989.4e9) == (1.0, "operations")
+    assert roofline.bound_ms(3.35e9, 67e9, 2 * 989.4e9) == (2.0,
+                                                            "operations")
+    assert roofline.bound_ms(6.7e9, 67e9, 989.4e9) == (2.0, "bytes")
 
 
 def defined_names(path):

@@ -12,10 +12,13 @@ layer in fp32 and cast to bf16 (``folded``, ``[k*21, H]``); every product
 takes bf16 operands and gives an fp32 result, to which the bias is added
 and ReLU applied in fp32. Layer 1 is K3 (``csrc/scorer.cu``), a sum of the
 k folded rows that a window's residues select, in i order
-(:func:`window_layer1`). Layers 2..N are fp32 products of bf16-valued
-operands: the product of two bf16 values is exact in fp32, so with TF32
-off this is the reference's bf16 x bf16 -> fp32 product (a bf16 product on
-the card would round its result to bf16 before the bias add).
+(:func:`window_layer1`). The hidden layers after it are K7
+(``csrc/dense.cu``, :mod:`~vcf2prot_tpu_torch.downstream.dense`): bf16
+products with fp32 sums on the tensor cores, the bias and ReLU in fp32,
+one rounding to bf16 (a bf16 ``torch.matmul`` would round its result to
+bf16 before the bias add). The ``[H, 1]`` output layer is an fp32 product
+of bf16-valued operands: the product of two bf16 values is exact in fp32,
+so with TF32 off this is the reference's bf16 x bf16 -> fp32 product.
 
 Training (``downstream/train.py``) runs the same forward through
 :class:`TrainableHead`: fp32 parameters, cast to bf16 inside the graph, and
@@ -33,6 +36,7 @@ from torch import nn
 
 from ..runtime.build import check_launch, load_kernels
 from ..runtime.pack import pad_to_bucket
+from .dense import DenseLayer
 from .head_tail import HeadTail
 from .peptides import (
     ALPHABET,
@@ -434,7 +438,8 @@ def fold_table(embed, w1) -> torch.Tensor:
 
 def _require_fp32_products(t) -> None:
     """Raise when fp32 products of CUDA tensors like ``t`` may run in
-    TF32: the scoring head's products need full fp32."""
+    TF32: the scoring head's ``[H, 1]`` output product needs full fp32
+    (K7, the hidden layers' products, never runs TF32)."""
     if t.device.type == "cuda" and tf32_matmul_on():
         raise RuntimeError(
             "TF32 is enabled for fp32 products "
@@ -444,26 +449,28 @@ def _require_fp32_products(t) -> None:
         )
 
 
-def hidden_layers(h1, layers) -> torch.Tensor:
-    """The last hidden activations of first-layer activations ``h1``
-    (bf16) through ``layers``, ``[(w, b), ...]`` with ``w`` fp32 holding
-    bf16 values: each ``relu(bf16(h) @ w + b)``, a product of bf16-valued
-    operands in fp32; ``h1`` itself when ``layers`` is empty. Serving
+def hidden_layers(h1, layers, sinks=None) -> torch.Tensor:
+    """The last hidden activations (bf16) of first-layer activations
+    ``h1`` (bf16) through ``layers``, ``[(w, b), ...]`` with ``w`` holding
+    bf16 values (bf16, or fp32 through its bf16 cast) and ``b`` fp32: each
+    layer K7, ``bf16(relu(h w + b))``, through :class:`~vcf2prot_tpu_torch.
+    downstream.dense.DenseLayer`; ``h1`` itself when ``layers`` is empty.
+    ``sinks``, ``[(gw, gb), ...]`` a layer, are where the layers' weight
+    and bias gradients are added (None: through autograd). Serving
     (:func:`later_layers`) and training (:meth:`TrainableHead.loss`, whose
     output layer is K6) share it, so the two cannot skew."""
-    if not layers:
-        return h1
-    _require_fp32_products(h1)
     h = h1
-    for w, b in layers:
-        h = torch.relu(h.to(torch.bfloat16).float() @ w + b)
+    for i, (w, b) in enumerate(layers):
+        gw, gb = (None, None) if sinks is None else sinks[i]
+        h = DenseLayer.apply(h, w.to(torch.bfloat16), b, gw, gb)
     return h
 
 
 def later_layers(h1, layers) -> torch.Tensor:
     """fp32 scores ``[M]`` of first-layer activations ``h1`` (bf16) through
     ``layers``: :func:`hidden_layers` of all but the last, then the last,
-    the ``[H, 1]`` output, as ``bf16(h) @ w + b`` with no ReLU."""
+    the ``[H, 1]`` output, as ``bf16(h) @ w + b`` with no ReLU, an fp32
+    product of bf16 values (``w`` fp32 holding bf16 values)."""
     h = hidden_layers(h1, layers[:-1])
     _require_fp32_products(h)
     w, b = layers[-1]
@@ -474,9 +481,9 @@ class ScoringHead(nn.Module):
     """The scoring head of one peptide length ``k``, on one device.
 
     Buffers: ``table`` (bf16 ``[k*21, H1]``, the folded first layer, made
-    once per head), ``b1`` (fp32), then for each later layer ``wI`` (fp32
-    holding bf16 values) and ``bI`` (fp32); the last is the ``[H, 1]``
-    output head.
+    once per head), ``b1`` (fp32), then for each later layer ``wI`` and
+    ``bI`` (fp32): a hidden layer's ``wI`` in bf16, K7's operand, made once;
+    the last, the ``[H, 1]`` output head's, fp32 holding bf16 values.
     """
 
     def __init__(self, k: int, table, b1, weights):
@@ -501,13 +508,18 @@ class ScoringHead(nn.Module):
             torch.as_tensor(np.asarray(params[names[0]], np.float32)),
         )
         b1 = torch.as_tensor(np.asarray(params["b1"], np.float32))
-        # later weights are the products' bf16 operands, kept as fp32
-        weights = [
-            (torch.as_tensor(np.asarray(params[n], np.float32))
-             .to(torch.bfloat16).float(),
-             torch.as_tensor(np.asarray(params["b" + n[1:]], np.float32)))
-            for n in names[1:]
-        ]
+
+        def later(name, dtype):
+            """A later layer's weight, the products' bf16 operand (kept in
+            ``dtype``), and its bias."""
+            w = torch.as_tensor(np.asarray(params[name], np.float32))
+            return (w.to(torch.bfloat16).to(dtype).contiguous(),
+                    torch.as_tensor(np.asarray(params["b" + name[1:]],
+                                               np.float32)))
+
+        # K7's weights in bf16, the output layer's as fp32
+        weights = [later(n, torch.bfloat16) for n in names[1:-1]]
+        weights.append(later(names[-1], torch.float32))
         return cls(k, table, b1.contiguous(), weights)
 
     def block_rows(self, m: int) -> int:
@@ -552,9 +564,10 @@ class TrainableHead(nn.Module):
 
     The forward is :class:`ScoringHead`'s: the fold and every bf16 cast run
     inside the graph, layer 1 is :class:`WindowLayer1` (K3, with K4 as its
-    gradient), the later layers :func:`later_layers`. Training takes a
-    batch's loss from :meth:`loss`, which runs the output layer, the loss
-    and their gradients as K6, whatever the head's depth.
+    gradient), the later layers :func:`later_layers` (the hidden ones K7
+    both ways). Training takes a batch's loss from :meth:`loss`, which runs
+    the output layer, the loss and their gradients as K6, whatever the
+    head's depth.
 
     The parameters are views of one flat fp32 buffer, ``flat``, in their
     order, and their gradients views of a second, ``flat_grad``, set once
@@ -643,19 +656,24 @@ class TrainableHead(nn.Module):
         """The masked mean loss of a batch (``head_tail.batch_loss`` of
         :meth:`forward`'s scores): u8 windows ``[B, k]``, fp32 labels
         ``y`` and mask ``m`` ``[B]``, ``count`` the whole batch's mask count
-        (None: ``m``'s sum). The hidden layers run as :func:`hidden_layers`;
-        the output layer, the loss and their gradients as K6
+        (None: ``m``'s sum). The hidden layers run as :func:`hidden_layers`
+        (K7 both ways), whose backward adds each layer's ``w`` and ``b``
+        gradients into their views of ``flat_grad``; the output layer, the
+        loss and their gradients as K6
         (:class:`~vcf2prot_tpu_torch.downstream.head_tail.HeadTail`) on
-        the last hidden activations in bf16, whose gradient flows back
-        through that cast; K6's backward adds the output layer's ``w`` and
-        ``b`` gradients into their views of ``flat_grad`` itself."""
-        h = hidden_layers(self._layer1(windows),
-                          self._later(self.names[1:-1]))
+        the last hidden activations (bf16), whose backward adds the output
+        layer's ``w`` and ``b`` gradients the same way."""
+        hidden = self.names[1:-1]
+        h = hidden_layers(
+            self._layer1(windows),
+            [(getattr(self, n).detach(), getattr(self, "b" + n[1:]).detach())
+             for n in hidden],
+            [(self.grads[n], self.grads["b" + n[1:]]) for n in hidden])
         out = self.names[-1]
         bias = "b" + out[1:]
-        return HeadTail.apply(h.to(torch.bfloat16), getattr(self, out),
-                              getattr(self, bias), y, m, count, binary,
-                              self.grads[out], self.grads[bias])
+        return HeadTail.apply(h, getattr(self, out), getattr(self, bias), y,
+                              m, count, binary, self.grads[out],
+                              self.grads[bias])
 
 
 def score_windows(windows, head: ScoringHead) -> torch.Tensor:

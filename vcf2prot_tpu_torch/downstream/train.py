@@ -5,8 +5,8 @@ Closes the ``--neoantigen_params`` loop: fit the head on labelled peptide
 windows and save an ``.npz`` in ``load_params``' schema, which the port's
 neoantigen paths serve. The forward is the serving forward
 (:class:`~vcf2prot_tpu_torch.downstream.scoring.TrainableHead`: K3 for
-layer 1 with K4 as its gradient, then fp32 products of bf16 values), so
-training and serving cannot skew.
+layer 1 with K4 as its gradient, then K7 for the hidden layers after it,
+both ways), so training and serving cannot skew.
 
 What follows the reference exactly: the input checks, the batch size
 (``min(_bucket(batch_size), _bucket(n))``), zero windows padding the rows
@@ -25,9 +25,9 @@ device work with no host wait from the first step to the final fetch: the
 data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
 the rows into static epoch buffers on the device (:func:`_epoch_loop`);
 one training step (the batch picked from those buffers by a step count on
-the device, the forward and the loss, the backward through K3, the hidden
-layers' products, K6 both ways (the output layer and the loss) and K4,
-then K5;
+the device, the forward and the loss, the backward through K3, K7 (the hidden
+layers after the first), K6 both ways (the output layer and the loss) and
+K4, then K5;
 :func:`_step_fn`) is captured in a CUDA graph and
 replayed once per batch (:class:`CapturedStep`); each step's loss lands in
 a device tensor, and the weights and losses are fetched once, at the end.
@@ -67,6 +67,7 @@ import torch
 
 from ..parallel.sharded import as_mesh, per_device
 from .adam import Adam, adam_update
+from .dense import KERNELS as DENSE_KERNELS
 from .head_tail import (  # noqa: F401 (batch_loss: the loss of scores)
     batch_loss,
     head_tail_backward,
@@ -86,7 +87,7 @@ from .scoring import (
 CAPTURE_WARMUP = 3
 # the wrappers (and their launch counters) of the kernels a step launches
 STEP_KERNELS = (window_layer1, window_layer1_backward, head_tail_forward,
-                head_tail_backward, adam_update)
+                head_tail_backward, adam_update, *DENSE_KERNELS)
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -181,7 +182,10 @@ class CapturedStep:
     the step touches, so the object keeps ``step`` (and through its
     closure those tensors: the head, the optimizer's state, the epoch
     buffers, the step count) alive: freed, their memory would be handed to
-    later allocations that the replays then overwrite."""
+    later allocations that the replays then overwrite. What a step makes
+    (the activations and bf16 weights that K7's backward saves, its
+    scratch) comes from the graph's own memory pool, which lives as long
+    as the graph."""
 
     def __init__(self, step, state):
         self.step = step

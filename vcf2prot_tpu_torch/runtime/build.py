@@ -61,6 +61,10 @@ SIGNATURES = {
                           _P, _P, _P, _P),
     "v2p_head_tail_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P,
                           _P, _P, _P, _P, _P),
+    "v2p_dense_forward": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "v2p_dense_backward_input": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
+    "v2p_dense_backward_weight": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                  _P, _P, _P, _P, _P),
 }
 
 _LIB = None

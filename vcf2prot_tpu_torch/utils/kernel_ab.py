@@ -1,10 +1,11 @@
-"""Compare versions of K1 (the executor), K2 (the validator), K5 (adam) or
-K6 (the head's tail) on one card.
+"""Compare versions of K1 (the executor), K2 (the validator), K5 (adam),
+K6 (the head's tail) or K7 (the hidden layers) on one card.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k5 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k6 OLD.cu NEW.cu [...]
+    python3 -m vcf2prot_tpu_torch.utils.kernel_ab k7 OLD.cu NEW.cu [...]
 
 Each source holds the kernel's C entry point (``v2p_segmented_copy_i32``,
 the ABI of ``csrc/executor.cu``, or ``v2p_validate_i32``, that of
@@ -43,6 +44,12 @@ rows masked. A source with the text of ``csrc/head_tail.cu`` is held bit
 for bit to the plain versions; any other (the first design, a variant
 summing in another order) within K6_TOL of a float64 reference. Each is then timed A, B, ..., B, A each way, launched alone and
 in a CUDA graph.
+K7's sources hold ``v2p_dense_forward``, ``v2p_dense_backward_input``
+and ``v2p_dense_backward_weight`` (the ABI of ``csrc/dense.cu``). No
+cohort: each version runs K7_LAYERS on seeded random layers, checked
+against the plain versions within ``dense.bf16_within`` (db bit-equal,
+the weight gradient's slices those of ``dense.weight_slices``), then timed
+A, B, ..., B, A, each kernel launched alone and in a CUDA graph.
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
 """
@@ -64,7 +71,9 @@ from . import roofline
 REPS, INNER = 10, 10
 ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32",
            "k5": "v2p_adam",
-           "k6": ("v2p_head_tail_fwd", "v2p_head_tail_bwd")}
+           "k6": ("v2p_head_tail_fwd", "v2p_head_tail_bwd"),
+           "k7": ("v2p_dense_forward", "v2p_dense_backward_input",
+                  "v2p_dense_backward_weight")}
 CHUNKS = (256 << 20, 128 << 20)
 # K5's heads (hidden width, depth) and its checked steps a version
 K5_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
@@ -72,6 +81,9 @@ K5_STEPS = 3
 # K6's heads (hidden width, depth), rows (a training batch) and masked rows
 K6_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
 K6_ROWS, K6_PAD = 4096, 37
+# K7's layers (rows, inputs, outputs): a training batch of the 512x3 head's
+# hidden layers (timed each way) and a serving block (its forward)
+K7_LAYERS = ((4096, 512, 512), (131072, 512, 512))
 # a version that sums in another order than the plain version, against
 # float64: s and the loss within 1e-5 (relative to the largest |s|, and to
 # the loss), b2's gradient within 1e-4, dh and w2's gradient within one
@@ -476,15 +488,136 @@ def ab_k6(paths, fns):
     return bad, out
 
 
+def _k7_check(fns, x, w, b, dy, slices, rows):
+    """One K7 version's forward, input and weight gradients on one layer
+    against the plain versions (each from the version's own y): the bf16
+    outputs within ``dense.bf16_within``, db bit-equal. Returns whether
+    all agree and the version's outputs' largest ulps."""
+    from ..downstream import dense as dn
+
+    fwd, inp, wgt = fns
+    m, k = x.shape
+    n = w.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    dx = torch.empty_like(x)
+    gw = torch.zeros((k, n), device="cuda")
+    gb = torch.zeros(n, device="cuda")
+    part = torch.empty(slices * (k * n + n), device="cuda")
+    for what, rc in (
+            ("forward", fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), m, k, n, stream)),
+            ("input", inp(w.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                          dx.data_ptr(), m, k, n, stream)),
+            ("weight", wgt(x.data_ptr(), y.data_ptr(), dy.data_ptr(), m, k,
+                           n, slices, rows, part.data_ptr(),
+                           part[slices * k * n:].data_ptr(), gw.data_ptr(),
+                           gb.data_ptr(), stream))):
+        if rc:
+            raise RuntimeError(f"K7 {what} launch failed, cudaError_t {rc}")
+    eps = 2.0 ** -24
+    xa, wa = x.float().abs(), w.float().abs()
+    dz = torch.where(y > 0, dy.float(), 0.0).abs()
+    rgw, rgb = torch.zeros_like(gw), torch.zeros_like(gb)
+    dn.dense_backward_weight_reference(x, y, dy, rgw, rgb)
+    cases = (
+        (y, dn.dense_forward_reference(x, w, b),
+         2 * (k + 1) * eps * (xa @ wa + b.abs())),
+        (dx, dn.dense_backward_input_reference(w, y, dy),
+         2 * n * eps * (dz @ wa.t())),
+        (gw.to(torch.bfloat16), rgw.to(torch.bfloat16),
+         2 * m * eps * (xa.t() @ dz)))
+    ok = torch.equal(gb, rgb) and all(
+        bool(dn.bf16_within(got, want, tol).all()) for got, want, tol in cases)
+    return ok, [int(dn.bf16_ulps(got, want).max()) for got, want, _ in cases]
+
+
+def ab_k7(paths, fns):
+    """K7's versions (``fns``, their ``(v2p_dense_forward,
+    v2p_dense_backward_input, v2p_dense_backward_weight)``) at K7_LAYERS:
+    each checked against the plain versions (:func:`_k7_check`), then timed
+    A, B, ..., B, A, each kernel launched alone and in a CUDA graph (the
+    gradients at the training batch only). Prints a line a layer; returns
+    ``(versions that disagreed, {layer: {path: {"fwd_ms", ...: [...]}}})``."""
+    from ..downstream import dense as dn
+
+    order = list(range(len(paths)))
+    order += order[::-1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    bad, out = 0, {}
+    for layer in K7_LAYERS:
+        m, k, n = layer
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             * (2.0 / k) ** 0.5).to(torch.bfloat16)
+        b = torch.randn(n, generator=gen, device="cuda") * 0.1
+        dy = (torch.randn(m, n, generator=gen, device="cuda")
+              * 1e-2).to(torch.bfloat16)
+        slices, rows = dn.weight_slices(m, k, n)
+        y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        dx = torch.empty_like(x)
+        gw = torch.zeros((k, n), device="cuda")
+        gb = torch.zeros(n, device="cuda")
+        part = torch.empty(slices * (k * n + n), device="cuda")
+        keys = (("fwd",) if m != K7_LAYERS[0][0] else
+                ("fwd", "input", "weight"))
+        times = {i: {f"{key}{kind}": [] for key in keys
+                     for kind in ("_ms", "_graph_ms")} for i in order}
+        for i in order:
+            fwd, inp, wgt = fns[i]
+            calls = {
+                "fwd": lambda f=fwd: f(x.data_ptr(), w.data_ptr(),
+                                       b.data_ptr(), y.data_ptr(), m, k, n,
+                                       torch.cuda.current_stream()
+                                       .cuda_stream),
+                "input": lambda f=inp: f(w.data_ptr(), y.data_ptr(),
+                                         dy.data_ptr(), dx.data_ptr(), m, k,
+                                         n, torch.cuda.current_stream()
+                                         .cuda_stream),
+                "weight": lambda f=wgt: f(
+                    x.data_ptr(), y.data_ptr(), dy.data_ptr(), m, k, n,
+                    slices, rows, part.data_ptr(),
+                    part[slices * k * n:].data_ptr(), gw.data_ptr(),
+                    gb.data_ptr(), torch.cuda.current_stream().cuda_stream)}
+            ok, ulps = _k7_check(fns[i], x, w, b, dy, slices, rows)
+            if not ok:
+                bad += 1
+            print(f"{paths[i]} K7 {m} x {k} -> {n}: "
+                  f"{'agrees' if ok else 'DISAGREES'} with the plain "
+                  f"versions (bf16_within, db bit-equal; largest ulps "
+                  f"forward / input / weight {ulps})")
+            for key in keys:
+                times[i][f"{key}_ms"].append(median_ms(calls[key]))
+                times[i][f"{key}_graph_ms"].append(graph_ms(calls[key]))
+        out[layer] = {paths[i]: times[i] for i in range(len(paths))}
+        parts = {"fwd": "forward", "input": "input", "weight": "weight"}
+        bounds = {key: roofline.dense_bound_ms(m, k, n, parts[key])[0]
+                  for key in keys}
+        print(f"K7 {m} x {k} -> {n} (alone / in a CUDA graph, ms, A B B A; "
+              f"bounds " + ", ".join(f"{key} {v:.6f}" for key, v in
+                                     bounds.items()) + " by bytes): "
+              + "; ".join(
+                  f"{paths[i]} " + " | ".join(
+                      ", ".join(f"{key} {times[i][key + '_ms'][j]:.4f} / "
+                                f"{times[i][key + '_graph_ms'][j]:.4f}"
+                                for key in keys)
+                      for j in range(len(times[i]["fwd_ms"])))
+                  for i in range(len(paths))))
+        del x, w, dy, y, dx, part
+        torch.cuda.empty_cache()
+    return bad, out
+
+
 def main(argv) -> int:
-    no_cohort = argv[:1] in (["k5"], ["k6"])
+    no_cohort = argv[:1] in (["k5"], ["k6"], ["k7"])
     if (not torch.cuda.is_available() or len(argv) < (2 if no_cohort else 4)
             or argv[0] not in ENTRIES):
         print(__doc__, file=sys.stderr)
         return 2
     print(card())
     if no_cohort:
-        run = ab_k5 if argv[0] == "k5" else ab_k6
+        run = {"k5": ab_k5, "k6": ab_k6, "k7": ab_k7}[argv[0]]
         with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
             fns = build_all(argv[1:], ENTRIES[argv[0]], outdir)
             return 1 if run(argv[1:], fns)[0] else 0

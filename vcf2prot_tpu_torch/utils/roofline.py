@@ -28,12 +28,16 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989.4e12
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0) -> tuple:
-    """``(ms, "bytes" | "operations")``: the larger of ``n_bytes`` over
-    ``PEAK_HBM_BPS`` and ``n_ops`` fp32 operations over
-    ``PEAK_FP32_FLOPS``, and which of the two it is."""
+def bound_ms(n_bytes: float, n_ops: float = 0,
+             tensor_ops: float = 0) -> tuple:
+    """``(ms, "bytes" | "operations")``: the largest of ``n_bytes`` over
+    ``PEAK_HBM_BPS``, ``n_ops`` fp32 operations over ``PEAK_FP32_FLOPS``
+    and ``tensor_ops`` bf16 tensor-core operations over
+    ``PEAK_BF16_FLOPS``, and which it is. (The two kinds of operations
+    run on different units, so the larger of them, not their sum, bounds
+    the time.)"""
     by_bytes = n_bytes / PEAK_HBM_BPS * 1e3
-    by_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    by_ops = max(n_ops / PEAK_FP32_FLOPS, tensor_ops / PEAK_BF16_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                           "operations")
 
@@ -197,14 +201,48 @@ def head_tail_bound_ms(rows: int, h_dim: int, part: str = "both") -> tuple:
                     head_tail_ops(rows, h_dim, part))
 
 
+# K7's parts: the forward, the input gradient, the weight gradient
+DENSE_PARTS = ("forward", "input", "weight")
+
+
+def dense_bytes(rows: int, k: int, n: int, part: str) -> int:
+    """K7's compulsory bytes for one layer of ``rows`` rows, ``k`` inputs
+    and ``n`` outputs: the ``forward`` reads x (bf16 ``[rows, k]``), w (bf16
+    ``[k, n]``) and b (fp32) and writes y (bf16 ``[rows, n]``); the
+    ``input`` gradient reads w, y and dy (bf16) and writes dx (bf16 ``[rows,
+    k]``); the ``weight`` gradient reads x, y and dy and reads and writes
+    the fp32 gradients of w and b it adds into."""
+    x, w, y = rows * k * 2, k * n * 2, rows * n * 2
+    return {"forward": x + w + n * 4 + y,
+            "input": w + 2 * y + x,
+            "weight": x + 2 * y + 2 * (k * n + n) * 4}[part]
+
+
+def dense_ops(rows: int, k: int, n: int, part: str) -> tuple:
+    """``(fp32 operations, bf16 tensor-core operations)`` of K7's ``part``:
+    ``2 rows k n`` on the tensor cores each way; the forward's bias and
+    ReLU (2 an output) and the weight gradient's column sums (1 an
+    element of dz) in fp32."""
+    fp32 = {"forward": 2 * rows * n, "input": 0, "weight": rows * n}[part]
+    return fp32, 2 * rows * k * n
+
+
+def dense_bound_ms(rows: int, k: int, n: int, part: str) -> tuple:
+    """``(ms, "bytes" | "operations")`` of K7's ``part``
+    (:func:`dense_bytes`, :func:`dense_ops`) through :func:`bound_ms`."""
+    return bound_ms(dense_bytes(rows, k, n, part),
+                    *dense_ops(rows, k, n, part))
+
+
 def train_step_costs(params: dict, rows: int) -> dict:
-    """``part -> (bytes, fp32 operations)`` of one training step of
-    ``rows`` windows with the head ``params`` (int64 positions, each
-    window's k bytes read once): K3, the later layers' products, their
-    gradients, K4 and K5. A product reads its bf16-valued input (2 bytes an
-    element) and its fp32 weight and writes its fp32 result; its gradient
-    reads the fp32 output gradient, the input and the weight and writes
-    the weight's and the input's fp32 gradients."""
+    """``part -> (bytes, fp32 operations, bf16 tensor-core operations)`` of
+    one training step of ``rows`` windows with the head ``params`` (int64
+    positions, each window's k bytes read once): K3, K7 (the hidden layers
+    after the first) and its gradients, the ``[H, 1]`` output product and
+    its gradient, K4 and K5. The output product reads its bf16-valued
+    input (2 bytes an element) and its fp32 weight and writes its fp32
+    result; its gradient reads the fp32 output gradient, the input and the
+    weight and writes the weight's and the input's fp32 gradients."""
     from ..downstream.peptides import VOCAB
     from ..downstream.scoring import layer_names
 
@@ -212,23 +250,34 @@ def train_step_costs(params: dict, rows: int) -> dict:
     h1 = params[names[0]].shape[1]
     k = params[names[0]].shape[0] // params["embed"].shape[1]
     n_params = sum(int(np.size(v)) for v in params.values())
-    fwd = bwd = (0, 0)
-    for name in names[1:]:
+
+    def add(a, b):
+        return tuple(x + y for x, y in zip(a, b))
+
+    dense = dense_grads = (0, 0, 0)
+    for name in names[1:-1]:
         n_in, n_out = params[name].shape
-        w_bytes = n_in * n_out * 4
-        fwd = (fwd[0] + rows * n_in * 2 + w_bytes + rows * n_out * 4,
-               fwd[1] + 2 * rows * n_in * n_out)
-        bwd = (bwd[0] + rows * n_out * 4 + rows * n_in * 2 + 2 * w_bytes
-               + rows * n_in * 4,
-               bwd[1] + 4 * rows * n_in * n_out)
+        dense = add(dense, (dense_bytes(rows, n_in, n_out, "forward"),
+                            *dense_ops(rows, n_in, n_out, "forward")))
+        for part in DENSE_PARTS[1:]:
+            dense_grads = add(dense_grads, (
+                dense_bytes(rows, n_in, n_out, part),
+                *dense_ops(rows, n_in, n_out, part)))
+    n_in, n_out = params[names[-1]].shape
+    w_bytes = n_in * n_out * 4
     return {
         "K3": (scorer_bytes(rows, h1, 8, rows * k, k * VOCAB * h1),
-               scorer_ops(rows, k, h1)),
-        "products": fwd,
-        "products' gradients": bwd,
+               scorer_ops(rows, k, h1), 0),
+        "K7": dense,
+        "K7's gradients": dense_grads,
+        "products": (rows * n_in * 2 + w_bytes + rows * n_out * 4,
+                     2 * rows * n_in * n_out, 0),
+        "products' gradients": (rows * n_out * 4 + rows * n_in * 2
+                                + 2 * w_bytes + rows * n_in * 4,
+                                4 * rows * n_in * n_out, 0),
         "K4": (scorer_grad_bytes(rows, k, h1, 8, rows * k),
-               scorer_ops(rows, k, h1)),
-        "K5": (adam_bytes(n_params), adam_ops(n_params)),
+               scorer_ops(rows, k, h1), 0),
+        "K5": (adam_bytes(n_params), adam_ops(n_params), 0),
     }
 
 
@@ -237,4 +286,4 @@ def train_step_bound_ms(params: dict, rows: int) -> tuple:
     :func:`train_step_costs` over the step's kernels, through
     :func:`bound_ms`."""
     costs = train_step_costs(params, rows).values()
-    return bound_ms(sum(b for b, _ in costs), sum(o for _, o in costs))
+    return bound_ms(*(sum(c[i] for c in costs) for i in range(3)))
