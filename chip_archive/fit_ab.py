@@ -1,6 +1,7 @@
 """How far the weights two checkouts of the port train lie apart.
 
     python3 chip_archive/fit_ab.py OTHER_ROOT [--device cuda]
+    python3 chip_archive/fit_ab.py OTHER_ROOT --dp-step
 
 Trains the synthetic MHC task of ``chip_smoke.py`` phase 9 (100,000
 9-mers, 80/20, 20 epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1
@@ -11,6 +12,13 @@ commit unpacked with ``git archive``), both through
 then for each head the largest difference over its weights, the largest
 weight, and both holdout AUCs. A change to a kernel's summation order or
 to a loss's arithmetic moves trained weights; this says by how much.
+
+With ``--dp-step`` it trains nothing: it times the eager data-parallel
+step (``chip_smoke.py`` phase 15's, 2 replicas on card 0, 4,096 rows) of
+the 128x1 and 512x3 heads by each checkout's own ``chip_smoke._step_ms``,
+each in a fresh process, in the order OTHER, this, this, OTHER, and
+prints each process's medians: the dp step is paced by the host, whose
+clock moves between calls, so two checkouts compare only within one.
 """
 from __future__ import annotations
 
@@ -46,6 +54,33 @@ np.savez(out, **arrays)
 """
 
 
+# the eager dp step through the checkout's own chip_smoke.py
+DP_CHILD = """
+import ast
+import sys
+import torch
+import chip_smoke as cs
+from vcf2prot_tpu_torch.downstream.scoring import init_params
+heads, reps = ast.literal_eval(sys.argv[1])
+mesh = (torch.device("cuda", 0),) * cs.MESH_SHARDS
+for name in heads:
+    params = init_params(cs.NEO_K, seed=0, **cs.TRAIN_HEADS[name])
+    print(name, cs._step_ms(params, mesh, reps=reps))
+"""
+DP_HEADS = ("128x1", "512x3")
+
+
+def dp_step_ms(root: str, reps: int = 200) -> dict:
+    """``{head: median ms}`` of the eager dp step, timed by the checkout
+    at ``root`` in a fresh process."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
+    out = subprocess.run([sys.executable, "-c", DP_CHILD,
+                          repr((DP_HEADS, reps))], cwd=root, env=env,
+                         check=True, capture_output=True, text=True).stdout
+    return {name: float(ms) for name, ms in
+            (line.split() for line in out.splitlines() if line.strip())}
+
+
 def fit_weights(root: str, out: str, device: str = "cuda", n: int = N,
                 epochs: int = EPOCHS, heads=None) -> dict:
     """The weights and holdout AUC of each head trained by the port of the
@@ -77,6 +112,8 @@ def main(argv=None) -> int:
         description=__doc__.splitlines()[0])
     ap.add_argument("other_root")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dp-step", action="store_true",
+                    help="time the eager dp step, OTHER A B B A")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     if args.device.startswith("cuda"):
@@ -86,6 +123,12 @@ def main(argv=None) -> int:
             check=True).stdout.strip())
     else:
         print(f"device {args.device}")
+    if args.dp_step:
+        for root in (args.other_root, here, here, args.other_root):
+            print(f"eager dp step (2 replicas, 4,096 rows, median of 200, "
+                  f"CUDA events) at {root}: " + "; ".join(
+                      f"{h} {ms:.4f} ms" for h, ms in dp_step_ms(root).items()))
+        return 0
     with tempfile.TemporaryDirectory(prefix="fit_ab_") as tmp:
         mine = fit_weights(here, os.path.join(tmp, "this.npz"), args.device)
         other = fit_weights(args.other_root, os.path.join(tmp, "other.npz"),

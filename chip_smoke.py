@@ -100,13 +100,21 @@ failing the run with a non-zero exit:
 8d. K7 (the hidden layers after the first: forward, input gradient,
    weight gradient on the bf16 tensor cores) against its plain versions on
    the card over ``K7_SHAPES`` (4,096 and 4,095 rows x 512 -> 512 and 128
-   -> 256, a 131,072-row serving block, 1,000 x 384 -> 640, 300 x 12 ->
-   20) and 4,095 x 128 -> 256 in views 2 bytes past alignment: each kernel
-   twice, bit-equal; the bf16 outputs within ``K7_TOL`` (the share that
-   differs printed), db bit-equal; a probe of subnormal sums; at 4,096 x
-   512 -> 512 and the serving block each kernel's launches alone
-   (``ms``) and its wrapper in a CUDA graph (``graph_ms``) beside its
-   bound, its plain version and ``torch.matmul`` of the bf16 operands
+   -> 256, a 131,072-row serving block, 1,000 x 384 -> 640, 100 x 24 -> 40,
+   300 x 12 -> 20) and 4,095 x 128 -> 256 in views 2 bytes past alignment:
+   each kernel twice, bit-equal; the bf16 outputs within ``K7_TOL`` (the
+   share that differs printed), db bit-equal; each case's launches counted
+   on the path ``dense.tma_path`` picks (the Hopper kernels, TMA and
+   ``wgmma``, for all but the odd width and the misaligned views, which
+   take the first design's), and for 4,096 x 512 -> 512 and the misaligned
+   views the path's kernels named by ``torch.profiler`` (none of the
+   other's); a probe of subnormal sums; at 4,096 x 512 ->
+   512 and the serving block its first design
+   (``chip_archive/dense_first.cu``) and the current one, each built into
+   a library of its own, A B B A (``utils/kernel_ab.py``'s ``ab_k7``):
+   each kernel launched alone (``ms``, ``earlier_ms``) and in a CUDA graph
+   (``graph_ms``, ``earlier_graph_ms``), beside its bound, its TFLOP/s,
+   its plain version and ``torch.matmul`` of the bf16 operands
    (``library_ms``);
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
@@ -124,8 +132,10 @@ failing the run with a non-zero exit:
    (``capture=False``) by CUDA events, beside the step's bound, with the
    shares of K4, K6 and K7; for the 128x1 and 512x3 heads the host
    calls, device kernels and device busy time a step of the epoch loop
-   (``torch.profiler``), then phase 9's fits captured and eager, A B B A,
-   with bit-equal weights;
+   (``torch.profiler``), whose kernel names show K7's Hopper kernels and
+   none of its edge path's in the 512x3 loop and no K7 kernel in the
+   128x1 one, then phase 9's fits captured and eager, A B B A, with
+   bit-equal weights;
 10. the trained 512x3 head saved with ``save_params`` and served by
    ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
    against ``-g mt``'s fp32 host report, and the training forward against
@@ -178,7 +188,11 @@ multi-node runs stay unverified.
 
 Each path's launch counts are set to 0 just before it and read just after
 (K7 on the serving path: phase 7's random 512x3 head and phase 10's trained
-one).
+one). K7's counts are its Hopper path's; its edge path (the first design)
+must have run nowhere on a path: the head's layers always take the Hopper
+one (``tests/test_torch_dense.py`` holds each wrapper's count to the
+pointers and extents its C entry picks the path from; phases 8d and 9b
+also read the kernels' names from the profiler).
 The line before the last is the kernels' JSON summary, K1-K7 (launches
 summed over the paths, a captured step's counted at each replay; ``ms``
 each kernel's launches alone and ``wrapper_ms`` its wrapper's, back to
@@ -190,8 +204,9 @@ same; K5 and K6 also in a CUDA graph, ``graph_ms``, K5 beside
 designs' ``earlier_ms`` / ``earlier_graph_ms``, K6 beside
 ``replaced_graph_ms``, the torch ops it replaces captured, and its 512x3
 tail's numbers as ``wide_*``, K7's forward on a serving block as
-``block_*``, null where they do not apply); the last line is ``{"ok":
-true, "device": {...}}``. Imports neither JAX nor the JAX package
+``block_*``, K7 beside its first design's ``earlier_ms`` /
+``earlier_graph_ms`` too, null where they do not apply); the last line is
+``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX package
 ``vcf2prot_tpu``.
 """
 from __future__ import annotations
@@ -200,6 +215,7 @@ import contextlib
 import gzip
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -299,9 +315,11 @@ K6_EARLIER = os.path.join(ROOT, "chip_archive", "head_tail_first.cu")
 # K7's layers (phase 8d), rows x inputs -> outputs: a training batch and an
 # odd one at the 512x3 head's hidden layers and at a 128 -> 256 layer, a
 # serving block of a 512-wide head (``dense_blk``'s 131,072 rows), a
-# non-square layer (M, K and N all apart, so that a transposed fragment
-# cannot hide), and an odd width (the element-by-element path); the layer
-# also run in views 2 bytes past alignment; the layers timed. K7_TOL, its
+# non-square layer (M, K and N all apart, so that a transposed operand
+# cannot hide), a layer narrower than a TMA box in every extent (zeros
+# read past its edges), and an odd width (the first design's edge path);
+# the layer also run in views 2 bytes past alignment (the edge path
+# again); the layers timed. K7_TOL, its
 # tolerance against its plain versions (``dense.bf16_within``): a bf16
 # output equal or one ulp apart (the tensor cores' fp32 sums are not the
 # plain version's rounded adds, so the two may round apart), or, where a
@@ -309,9 +327,11 @@ K6_EARLIER = os.path.join(ROOT, "chip_archive", "head_tail_first.cu")
 # an ulp; db bit-equal (summed in the plain version's order)
 K7_SHAPES = ((4096, 512, 512), (4095, 512, 512), (4096, 128, 256),
              (4095, 128, 256), (131072, 512, 512), (1000, 384, 640),
-             (300, 12, 20))
+             (100, 24, 40), (300, 12, 20))
 K7_MISALIGNED = (4095, 128, 256)
 K7_TIMED = ((4096, 512, 512), (131072, 512, 512))
+# K7's first design, timed beside the current one (phase 8d)
+K7_EARLIER = os.path.join(ROOT, "chip_archive", "dense_first.cu")
 K7_TOL = "bf16 equal or 1 ulp, or 2x the fp32 reassociation bound + 1 ulp"
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
@@ -829,7 +849,7 @@ def chain_wide_products(card, tape, pos):
     ``ScoringHead.score_positions`` scores them: each block's K3, then its
     hidden layers after the first (K7) and its ``[H, 1]`` output product,
     each timed by CUDA events around it and summed over the blocks (the
-    second of two passes), beside K7's bound."""
+    second of two passes), beside K7's bound; K7 on its Hopper path."""
     import torch
 
     from vcf2prot_tpu_torch.downstream import scoring as sc
@@ -841,20 +861,27 @@ def chain_wide_products(card, tape, pos):
               for i in head.layers]
     m = pos.numel()
     blk = head.block_rows(m)
-    for _ in range(2):
-        events = []
-        for s in range(0, m, blk):
-            h1 = sc._launch_layer1(tape, pos[s:s + blk], NEO_K, head.table,
-                                   head.b1)
-            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            marks[0].record()
-            h = sc.hidden_layers(h1, layers[:-1])
-            marks[1].record()
-            sc.later_layers(h, layers[-1:])
-            marks[2].record()
-            events.append(marks)
-            del h1, h
-        torch.cuda.synchronize()
+    with dense_counts() as counts:
+        for _ in range(2):
+            events = []
+            for s in range(0, m, blk):
+                h1 = sc._launch_layer1(tape, pos[s:s + blk], NEO_K,
+                                       head.table, head.b1)
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                marks[0].record()
+                h = sc.hidden_layers(h1, layers[:-1])
+                marks[1].record()
+                sc.later_layers(h, layers[-1:])
+                marks[2].record()
+                events.append(marks)
+                del h1, h
+            torch.cuda.synchronize()
+    # K7 on its Hopper path, once a block and layer in each pass
+    want = 2 * (len(layers) - 1) * -(-m // blk)
+    check(counts["dense_forward"] == want,
+          f"chain products: K7's Hopper forward launched "
+          f"{counts['dense_forward']} times, not {want}")
     k7 = sum(a.elapsed_time(b) for a, b, _c in events)
     out = sum(b.elapsed_time(c) for _a, b, c in events)
     bounds = [roofline.dense_bound_ms(min(blk, m - s), *w.shape, "forward")
@@ -2078,64 +2105,108 @@ def phase_k7(card):
     again in views 2 bytes past alignment: each kernel launched twice,
     bit-equal; the forward's and the two gradients' bf16 outputs within
     K7_TOL of the plain versions (the share that differs printed), db
-    bit-equal; a probe of subnormal sums. At K7_TIMED each kernel's
-    launches alone back to back (``ms``) and its wrapper in a CUDA graph
-    (``graph_ms``), beside its bound, its plain version and
-    ``torch.matmul`` of the bf16 operands (``library_ms``, the yardstick,
-    which the port never calls); the serving block's forward as
+    bit-equal; each case's launches counted on the path ``dense.tma_path``
+    picks (the Hopper kernels for every case TMA can address, the first
+    design's for the odd width and the misaligned views); a probe of
+    subnormal sums. For K7_TIMED[0] and the misaligned view, the path's
+    kernels by the names ``torch.profiler`` records, and none of the other
+    path's. At K7_TIMED each kernel's first design
+    (``chip_archive/dense_first.cu``) and the current one, each built into
+    a library of its own, A B B A (``utils/kernel_ab.py``'s ``ab_k7``):
+    launched alone back to back (``ms``, ``earlier_ms``) and in a CUDA graph
+    (``graph_ms``, ``earlier_graph_ms``), beside its bound, its plain
+    version and ``torch.matmul`` of the bf16 operands (``library_ms``, the
+    yardstick, which the port never calls); the serving block's forward as
     ``block_*``. Returns the three kernels' numbers."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from vcf2prot_tpu_torch.downstream import dense as dn
-    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
-    from vcf2prot_tpu_torch.utils import roofline
+    from vcf2prot_tpu_torch.utils import kernel_ab, roofline
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(41)
     worst = {part: [0.0, 0, 0] for part in roofline.DENSE_PARTS}
     cases = [(shape, False) for shape in K7_SHAPES] + [(K7_MISALIGNED, True)]
+    paths = {"hopper": 0, "edge": 0}
     for (rows, k, n), misaligned in cases:
         what = (f"K7 {rows} x {k} -> {n}"
                 + (", 2 bytes past alignment" if misaligned else ""))
-        _y, stats = _k7_case(what, *_k7_inputs(rows, k, n, gen, misaligned))
+        x, w, b, dy = _k7_inputs(rows, k, n, gen, misaligned)
+        tma = dn.tma_path(rows, k, n, x.data_ptr(), w.data_ptr(),
+                          dy.data_ptr())
+        check(tma == (not misaligned and k % 8 == 0 and n % 8 == 0),
+              f"{what}: tma_path says {tma}")
+        # the training layer and the misaligned view under the profiler
+        # too: the kernels the card ran, by name, on the path counted
+        profiled = (rows, k, n) == K7_TIMED[0] or misaligned
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with dense_counts(edge=True) as counts, (
+                prof if profiled else contextlib.nullcontext()):
+            _y, stats = _k7_case(what, x, w, b, dy)
+        if profiled:
+            ran = k7_paths(device_kernels(prof))
+            check(ran == {"hopper" if tma else "edge"},
+                  f"{what}: the profiler saw K7's {sorted(ran)} kernels")
+        # each kernel twice (_k7_case), all on the path the rule picks
+        want = {"launches": 2 if tma else 0, "edge_launches": 0 if tma else 2}
+        check(all(counts[f.__name__] == want["launches"]
+                  and counts["edge"][f.__name__] == want["edge_launches"]
+                  for f in dn.KERNELS),
+              f"{what}: launches {counts}, not {want} each")
+        paths["hopper" if tma else "edge"] += 1
         for part, (_ok, share, most, over, _err) in stats.items():
-            w = worst[part]
-            worst[part] = [max(w[0], share), max(w[1], most), w[2] + over]
+            w_ = worst[part]
+            worst[part] = [max(w_[0], share), max(w_[1], most), w_[2] + over]
         print(f"{what} on {card}: " + "; ".join(
             f"{part} {100 * share:.3f}% differ, up to {most} ulp"
             for part, (_ok, share, most, _o, _e) in stats.items())
-            + "; db bit-equal; two launches bit-equal")
-    print(f"K7 vs plain on {card}: {len(cases)} cases, within {K7_TOL} "
-          f"(at most share differing / largest ulps / elements past an "
-          f"ulp): "
+            + f"; db bit-equal; two launches bit-equal; "
+            f"{'Hopper' if tma else 'edge (first design)'} path"
+            + (" (launch counts and the profiler's kernel names)" if profiled
+               else " (launch counts)"))
+        del x, w, b, dy, _y
+    print(f"K7 vs plain on {card}: {len(cases)} cases ({paths['hopper']} on "
+          f"the Hopper path, {paths['edge']} on the edge path, by the launch "
+          f"counts), within {K7_TOL} (at most share differing / largest ulps "
+          f"/ elements past an ulp): "
           + "; ".join(f"{p} {100 * s:.3f}% / {u} / {o}"
                       for p, (s, u, o) in worst.items()))
     print(f"K7 subnormal sums on {card}: {_k7_subnormal_probe()}")
 
-    lib = load_kernels()
-    stream = torch.cuda.current_stream().cuda_stream
+    # the first design against the current one, in one call (A B B A):
+    # both sides' launches timed alike, alone and in a CUDA graph
+    srcs = [K7_EARLIER, os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                                     "dense.cu")]
+    names = [os.path.relpath(path, ROOT) for path in srcs]
+    with tempfile.TemporaryDirectory(prefix="k7_ab_") as outdir:
+        fns = kernel_ab.build_all(srcs, kernel_ab.ENTRIES["k7"], outdir)
+        bad, ab = kernel_ab.ab_k7(names, fns)
+    check(bad == 0, "K7: a version of the A/B disagrees with the plain "
+                    "versions")
+    check(tuple(ab) == K7_TIMED, f"K7: the A/B timed {tuple(ab)}")
+
+    def ab_ms(layer, path, key):
+        return statistics.median(ab[layer][path][key])
+
     measured = {"dense_forward": {}, "dense_backward_input": {},
                 "dense_backward_weight": {}}
     for rows, k, n in K7_TIMED:
+        layer = (rows, k, n)
         x, w, b, dy = _k7_inputs(rows, k, n, gen)
         y = dn.dense_forward(x, w, b)
         want = dn.dense_forward_reference(x, w, b)
         dzb = torch.where(y > 0, dy, torch.zeros_like(dy))
         parts = {
             "dense_forward": dict(
-                part="forward", out=torch.empty_like(y),
-                launch=lambda o: lib.v2p_dense_forward(
-                    x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-                    rows, k, n, stream),
-                wrapper=lambda: dn.dense_forward(x, w, b),
+                part="forward", key="fwd",
                 plain=lambda: dn.dense_forward_reference(x, w, b),
                 library=lambda: x @ w,
                 err=float((y.float() - want.float()).abs().max()))}
         if rows == K7_TIMED[0][0]:
             gw = torch.zeros((k, n), device=DEV)
             gb = torch.zeros(n, device=DEV)
-            slices, srows = dn.weight_slices(rows, k, n)
-            part = torch.empty(slices * (k * n + n), device=DEV)
             dx = dn.dense_backward_input(w, y, dy)
             gws = []
             for fn in (dn.dense_backward_weight,
@@ -2143,43 +2214,36 @@ def phase_k7(card):
                 gws.append(torch.zeros((k, n), device=DEV))
                 fn(x, y, dy, gws[-1], torch.zeros(n, device=DEV))
             parts["dense_backward_input"] = dict(
-                part="input", out=torch.empty_like(x),
-                launch=lambda o: lib.v2p_dense_backward_input(
-                    w.data_ptr(), y.data_ptr(), dy.data_ptr(), o.data_ptr(),
-                    rows, k, n, stream),
-                wrapper=lambda: dn.dense_backward_input(w, y, dy),
+                part="input", key="input",
                 plain=lambda: dn.dense_backward_input_reference(w, y, dy),
                 library=lambda: dzb @ w.t(),
                 err=float((dx.float() - dn.dense_backward_input_reference(
                     w, y, dy).float()).abs().max()))
             parts["dense_backward_weight"] = dict(
-                part="weight", out=None,
-                launch=lambda o: lib.v2p_dense_backward_weight(
-                    x.data_ptr(), y.data_ptr(), dy.data_ptr(), rows, k, n,
-                    slices, srows, part.data_ptr(),
-                    part[slices * k * n:].data_ptr(), gw.data_ptr(),
-                    gb.data_ptr(), stream),
-                wrapper=lambda: dn.dense_backward_weight(x, y, dy, gw, gb),
+                part="weight", key="weight",
                 plain=lambda: dn.dense_backward_weight_reference(
                     x, y, dy, gw, gb),
                 library=lambda: x.t() @ dzb,
                 err=float((gws[0] - gws[1]).abs().max()))
         for name, p in parts.items():
-            out = p["out"]
-            ms, rc = _cuda_ms(lambda: p["launch"](out), inner=BACK_TO_BACK)
-            check_launch(rc, f"K7 {p['part']}")
-            graph = _graph_ms(p["wrapper"])
+            ms = ab_ms(layer, names[1], f"{p['key']}_ms")
+            graph = ab_ms(layer, names[1], f"{p['key']}_graph_ms")
+            earlier = ab_ms(layer, names[0], f"{p['key']}_ms")
+            earlier_graph = ab_ms(layer, names[0], f"{p['key']}_graph_ms")
             plain, _ = _cuda_ms(p["plain"], reps=3)
             library, _ = _cuda_ms(p["library"], inner=BACK_TO_BACK)
             bound, by = roofline.dense_bound_ms(rows, k, n, p["part"])
-            print(f"K7 {p['part']} {rows} x {k} -> {n} on {card}: launched "
-                  f"alone back to back {ms:.4f} ms, wrapper in a CUDA graph "
-                  f"{graph:.4f} ms ({100 * bound / graph:.1f}% of the "
-                  f"{bound:.6f} ms bound by {by}; "
-                  f"{2 * rows * k * n / graph / 1e9:.1f} TFLOP/s); "
+            print(f"K7 {p['part']} {rows} x {k} -> {n} on {card}, A B B A "
+                  f"against its first design (median of each version's "
+                  f"two): launched alone back to back {ms:.4f} ms (first "
+                  f"design {earlier:.4f}), in a CUDA graph {graph:.4f} ms "
+                  f"(first design {earlier_graph:.4f}; "
+                  f"{100 * bound / graph:.1f}% of the {bound:.6f} ms bound by "
+                  f"{by}; {2 * rows * k * n / graph / 1e9:.1f} TFLOP/s); "
                   f"torch.matmul of the bf16 operands {library:.4f} ms; "
                   f"plain {plain:.4f} ms; max |d| from plain {p['err']}")
-            numbers = dict(ms=ms, graph_ms=graph, plain_ms=plain,
+            numbers = dict(ms=ms, graph_ms=graph, earlier_ms=earlier,
+                           earlier_graph_ms=earlier_graph, plain_ms=plain,
                            bound_ms=bound, bound_by=by, library_ms=library,
                            max_abs_err=p["err"])
             if rows == K7_TIMED[0][0]:
@@ -2194,16 +2258,24 @@ def phase_k7(card):
 
 
 @contextlib.contextmanager
-def dense_counts():
-    """K7's launch counts from zero for the body, read into the dict it
-    yields when the body ends."""
+def dense_counts(edge=False):
+    """K7's launch counts on its Hopper path from zero for the body, read
+    into the dict it yields when the body ends; with ``edge``, its edge
+    path's too (under ``"edge"``), else none may have run there: the
+    head's layers always take the Hopper path."""
     from vcf2prot_tpu_torch.downstream.dense import KERNELS
 
     counts = {}
     for f in KERNELS:
-        f.launches = 0
+        f.launches = f.edge_launches = 0
     yield counts
     counts.update({f.__name__: f.launches for f in KERNELS})
+    edges = {f.__name__: f.edge_launches for f in KERNELS}
+    if edge:
+        counts["edge"] = edges
+    else:
+        check(not any(edges.values()),
+              f"K7 took its edge path on a head's layers: {edges}")
 
 
 @contextlib.contextmanager
@@ -2268,7 +2340,7 @@ def phase_train(card):
     window_layer1.launches = window_layer1_backward.launches = 0
     adam_update.launches = 0
     for f in DENSE_KERNELS:
-        f.launches = 0
+        f.launches = f.edge_launches = 0
     aucs, trained, k6 = {}, {}, {}
     for name, shape in TRAIN_HEADS.items():
         head_tail_forward.launches = head_tail_backward.launches = 0
@@ -2313,6 +2385,9 @@ def phase_train(card):
           <= launches["dense_forward"],
           f"training path launches {launches}: K7's gradients not {want}, "
           f"or its forward fewer")
+    check(not any(f.edge_launches for f in DENSE_KERNELS),
+          "K7 took its edge path on the training path: "
+          + str({f.__name__: f.edge_launches for f in DENSE_KERNELS}))
     check(aucs["128x1"] > aucs["8x1"],
           f"128x1 AUC {aucs['128x1']} not above 8x1 {aucs['8x1']}")
     print(f"training path launches (replays counted): {launches}")
@@ -2364,12 +2439,36 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
+# K7's kernels as the profiler names them (csrc/dense.cu): the Hopper
+# path's dense_kernel<kind>, the edge path's first-design kernels
+K7_KERNEL = re.compile(
+    r"\b(hopper)::dense_kernel\b|\b(edge)::dense_\w+_kernel\b")
+
+
+def device_kernels(prof):
+    """The names of the device kernels and copies that ``prof`` (a
+    ``torch.profiler.profile`` that has ended) recorded."""
+    import torch
+
+    return {ev.key for ev in prof.key_averages()
+            if (getattr(ev, "device_time_total", 0) or 0)
+            and getattr(ev, "device_type", None)
+            == torch.autograd.DeviceType.CUDA}
+
+
+def k7_paths(names):
+    """The K7 paths (``"hopper"``, ``"edge"``) whose kernels are among
+    the kernel ``names``: what the card ran, not what a counter says."""
+    return {m.group(1) or m.group(2) for m in map(K7_KERNEL.search, names)
+            if m}
+
+
 def _fit_profile(win, labels, n_tr, shape, capture):
     """One 2-epoch fit of the MHC task, its epoch loop alone under
     ``torch.profiler``: ``(host calls that put work on a stream, device
     kernels and copies, device busy ms)`` a step (zeros where the
-    profiler records no such event), and the host calls a step by
-    name."""
+    profiler records no such event), the host calls a step by name, and
+    the K7 paths whose kernels ran (:func:`k7_paths`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2392,15 +2491,17 @@ def _fit_profile(win, labels, n_tr, shape, capture):
                 torch.autograd.DeviceType.CUDA:
             kernels += ev.count
             busy += total / 1e3
-    return sum(calls.values()), kernels / steps, busy / steps, calls
+    return (sum(calls.values()), kernels / steps, busy / steps, calls,
+            k7_paths(device_kernels(prof)))
 
 
 def phase_step_times(card, k4, k6, k7):
     """9b: the captured step against the eager one (``capture=False``):
     device time a step, host calls and device kernels a step, the shares of
-    K4, K6 and (512x3) K7, then phase 9's fits captured against eager, A B
-    B A, with their weights bit-equal; beside each head's bound from
-    ``utils/roofline.py``."""
+    K4, K6 and (512x3) K7, K7's kernels by the profiler's names (the Hopper
+    path's alone at 512x3, none at 128x1), then phase 9's fits captured
+    against eager, A B B A, with their weights bit-equal; beside each
+    head's bound from ``utils/roofline.py``."""
     import numpy as np
 
     from vcf2prot_tpu_torch.downstream import train
@@ -2434,10 +2535,12 @@ def phase_step_times(card, k4, k6, k7):
     # hidden layers after the first (all 512 -> 512 at MHC_BATCH rows)
     layers = HEADS["512x3"]["depth"] - 1
     k7_ms = layers * sum(v["graph_ms"] for v in k7.values())
-    print(f"512x3 step: K7 ({layers} layers x forward, input and weight "
-          f"gradients, each in a graph at {K7_TIMED[0]}) {k7_ms:.4f} ms, "
+    k7_first = layers * sum(v["earlier_graph_ms"] for v in k7.values())
+    print(f"512x3 step: K7 on its Hopper path ({layers} layers x forward, "
+          f"input and weight gradients, each in a graph at {K7_TIMED[0]}, "
+          f"phase 8d's A/B) {k7_ms:.4f} ms, "
           f"{100 * k7_ms / step['512x3']['captured']:.1f}% of the captured "
-          f"step")
+          f"step (its first design {k7_first:.4f} ms in the same A/B)")
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     for name in CAPTURE_HEADS:
         shape = TRAIN_HEADS[name]
@@ -2448,7 +2551,16 @@ def phase_step_times(card, k4, k6, k7):
               f"and copies / device busy ms): " + "; ".join(
                   f"{mode} {h:.2f} / {kn:.2f} / {b:.4f} ("
                   + ", ".join(f"{c} {v:.2f}" for c, v in calls.items()) + ")"
-                  for mode, (h, kn, b, calls) in per.items()))
+                  for mode, (h, kn, b, calls, _k7) in per.items())
+              + "; K7 kernels the profiler saw: " + "; ".join(
+                  f"{mode} {sorted(v[-1]) or 'none'}"
+                  for mode, v in per.items()))
+        # what the card ran: the 512x3 head's layers on the Hopper path
+        # alone, the 1-deep head with no layer for K7
+        want = {"hopper"} if TRAIN_HEADS[name]["depth"] > 1 else set()
+        for mode, v in per.items():
+            check(v[-1] == want, f"{name} {mode} epoch loop: the profiler "
+                  f"saw K7's {sorted(v[-1])} kernels, not {sorted(want)}")
         kw = dict(epochs=MHC_EPOCHS, batch_size=MHC_BATCH, seed=0,
                   device=DEV, params=init_params(NEO_K, seed=0, **shape))
         walls, fits = {"captured": [], "eager": []}, {}
@@ -3047,7 +3159,7 @@ def main():
             "wide_plain_ms", "wide_wrapper_ms", "wide_replaced_ms",
             "wide_replaced_graph_ms", "wide_pair_graph_ms", "block_ms",
             "block_graph_ms", "block_plain_ms", "block_bound_ms",
-            "block_library_ms")
+            "block_library_ms", "block_earlier_ms", "block_earlier_graph_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

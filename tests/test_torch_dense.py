@@ -14,7 +14,9 @@ Tolerances:
 * against autograd of the torch formula: y, dx and dw bit-equal (the same
   torch products on the same values), db within 1e-6 of the sum of its
   terms' magnitudes (K7 sums it in its own order);
-* K7's order of db's sums and its geometry against the CUDA source: exact.
+* K7's order of db's sums and its geometry against the CUDA source: exact;
+* the rule that picks K7's path (the Hopper kernels or the first design's)
+  on shapes and addresses: exact.
 """
 import os
 import re
@@ -296,17 +298,142 @@ def test_column_sums_order(m, slices, rows):
 
 
 def test_geometry_matches_the_cuda_source():
+    """Both paths' tiles and stages are dense.TILE and dense.STAGE; the
+    Hopper path runs wgmma fed by TMA through mbarriers, the edge path (the
+    first design) mma.sync; the C rule that picks the path is the one
+    dense.tma_path states; no atomics and no library GEMM anywhere."""
     src = open(CU).read()
+    hopper = src[src.index("namespace hopper {"):
+                 src.index("}  // namespace hopper")]
+    edge = src[src.index("namespace edge {"):
+               src.index("}  // namespace edge")]
 
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    def const(text, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)
+                   .group(1))
 
-    assert const("kBM") == const("kBN") == dn.TILE
-    assert const("kBK") == dn.STAGE
+    assert const(edge, "kBM") == const(edge, "kBN") == dn.TILE
+    assert const(edge, "kBK") == dn.STAGE
+    assert const(hopper, "kTile") == dn.TILE
+    assert const(hopper, "kDepth") == const(hopper, "kBox") == dn.STAGE
+    for instruction in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16",
+                        "cp.async.bulk.tensor.2d.shared::cluster.global."
+                        "mbarrier::complete_tx",
+                        "cp.async.bulk.tensor.2d.global.shared::cta",
+                        "mbarrier.try_wait.parity", "setmaxnreg.inc"):
+        assert instruction in hopper, instruction
+    assert "mma.sync" not in hopper and "cp.async.cg" not in hopper
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in edge
+    rule = src[src.index("bool tma_path("):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "k % 8 != 0 || n % 8 != 0" in rule
+    assert "int64_t{1} << 31" in rule and "aligned16(p)" in rule
+    # the weight gradient's slices are whole stages, as the entry demands
+    assert "slice_rows % hopper::kDepth != 0" in src
     # no atomics, no library GEMM
     assert not re.search(r"atomic\w*\s*\(", src)
     assert "cublas" not in src.lower() and "#include <cutlass" not in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+
+
+ALIGNED = (0x7F0000000000, 0x7F0000010000, 0x7F0000020000)
+
+
+@pytest.mark.parametrize("m,k,n,pointers,want", [
+    (4096, 512, 512, ALIGNED, True),           # the 512x3 head's layers
+    (131_072, 512, 512, ALIGNED, True),        # a serving block
+    (4095, 128, 256, ALIGNED, True),           # ragged M
+    (1, 128, 128, ALIGNED, True),              # one row
+    (100, 24, 40, ALIGNED, True),              # narrower than a TMA box
+    (300, 12, 20, ALIGNED, False),             # odd widths
+    (300, 24, 20, ALIGNED, False),             # N not a multiple of 8
+    (300, 20, 24, ALIGNED, False),             # K not a multiple of 8
+    (4095, 128, 256, (ALIGNED[0] + 2,) + ALIGNED[1:], False),  # 2 B past
+    (4095, 128, 256, ALIGNED[:2] + (ALIGNED[2] + 8,), False),  # one of them
+    (0, 512, 512, ALIGNED, False),             # zero-size extents
+    (5, 0, 8, ALIGNED, False),
+    (5, 8, 0, ALIGNED, False),
+    (2 ** 31, 8, 8, ALIGNED, False),           # past TMA's int32 coordinates
+    (2 ** 31 - 1, 8, 8, ALIGNED, True),
+])
+def test_tma_path_rule(m, k, n, pointers, want):
+    """The rule that sends a layer to the Hopper kernels or to the first
+    design's: every extent in (0, 2**31), K and N multiples of 8, every
+    bf16 array 16-byte aligned."""
+    assert dn.tma_path(m, k, n, *pointers) is want
+
+
+def _c_rule_args(entry):
+    """``(the indices of tma_path's arguments among the C entry's
+    parameters, the entry's parameter names)``: the entry puts a layer on
+    the Hopper path by that one call."""
+    src = open(CU).read()
+    head = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{', src, re.S)
+    params = [re.findall(r"\w+", p)[-1] for p in head.group(1).split(",")]
+    body = src[head.end():src.index("\n}\n", head.end())]
+    calls = re.findall(r"tma_path\(([^{}]*)\{([^}]*)\}\)", body)
+    assert len(calls) == 1, calls
+    names = [a.strip() for a in calls[0][0].split(",") if a.strip()]
+    names += [a.strip() for a in calls[0][1].split(",")]
+    return [params.index(a) for a in names], params
+
+
+def _py_rule_args(wrapper):
+    """The same for a wrapper: the indices of its ``tma_path`` call's
+    arguments among the arguments it hands the C entry (``_launch``'s
+    after the entry, its name and the device)."""
+    import ast
+    import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(wrapper)))
+    calls = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            calls.setdefault(node.func.id, []).append(
+                [ast.unparse(a) for a in node.args])
+    assert len(calls["_launch"]) == len(calls["tma_path"]) == 1, calls
+    entry, passed = calls["_launch"][0][0], calls["_launch"][0][3:]
+    return [passed.index(a) for a in calls["tma_path"][0]], entry, passed
+
+
+@pytest.mark.parametrize("wrapper", dn.KERNELS, ids=lambda f: f.__name__)
+def test_wrappers_count_the_path_the_entry_takes(wrapper):
+    """Each wrapper counts its launch on the path ``dense.tma_path`` picks
+    from the same extents and the same arrays, at the same places among
+    the entry's arguments, as the C entry hands its own ``tma_path``: so
+    the count on each path is the path the card ran."""
+    py, entry, passed = _py_rule_args(wrapper)
+    assert entry == f"load_kernels().v2p_{wrapper.__name__}"
+    c, params = _c_rule_args(f"v2p_{wrapper.__name__}")
+    assert len(passed) + 1 == len(params) and params[-1] == "stream"
+    assert py == c, (py, c)
+
+
+def test_tma_path_on_tensors():
+    """The rule on torch tensors: fresh ones take the Hopper path, views 2
+    bytes past alignment (as chip_smoke.py's K7_MISALIGNED) do not."""
+    x = torch.zeros((300, 128), dtype=torch.bfloat16)
+    w = torch.zeros((128, 256), dtype=torch.bfloat16)
+    y = torch.zeros((300, 256), dtype=torch.bfloat16)
+    ptrs = [t.data_ptr() for t in (x, w, y)]
+    assert all(p % 16 == 0 for p in ptrs)
+    assert dn.tma_path(300, 128, 256, *ptrs)
+    shifted = torch.zeros(300 * 128 + 1, dtype=torch.bfloat16)[1:]
+    assert shifted.data_ptr() % 16 == 2
+    assert not dn.tma_path(300, 128, 256, shifted.data_ptr(), *ptrs[1:])
+
+
+def test_wrappers_count_each_path_apart():
+    """Every wrapper has a launch count for each path, both from 0, and
+    the plain versions on the CPU count none."""
+    for f in dn.KERNELS:
+        f.launches = f.edge_launches = 0
+    x, w, b, dy = (bf16(a) if a.ndim == 2 else torch.from_numpy(a)
+                   for a in layer(5, 16, 24, seed=2))
+    y = dn.dense_forward(x, w, b)
+    dn.dense_backward_input(w, y, dy)
+    dn.dense_backward_weight(x, y, dy, torch.zeros(16, 24), torch.zeros(24))
+    assert all(f.launches == f.edge_launches == 0 for f in dn.KERNELS)
 
 
 def test_wrappers_check_their_arguments():

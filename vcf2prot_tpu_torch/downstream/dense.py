@@ -39,6 +39,16 @@ own order (:func:`column_sums`, over :func:`weight_slices`), which the plain
 version repeats: it is bit-equal. The ReLU mask is read from the bf16
 output (``y > 0``): it differs from the reference's fp32 ``z > 0`` only
 where ``0 < z`` rounds to a bf16 zero (below 2**-133).
+
+Each kernel has two paths on the card, picked by one rule from the shapes
+and pointers alone (:func:`tma_path`, which ``csrc/dense.cu`` repeats):
+the design for Hopper (TMA, ``wgmma``, a persistent grid), which the
+head's layers always take, and the first design's products
+(``mma.sync``, tiles loaded element by element) for the shapes TMA
+cannot address (an odd width, a view that is not 16-byte
+aligned). Each wrapper counts the first path's launches in ``launches``
+and the other's in ``edge_launches``. Neither path falls back on the
+other: a launch that fails raises.
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ import torch
 from ..runtime.build import check_launch, load_kernels
 
 # K7's output tile (rows and columns) and reduction stage, as
-# csrc/dense.cu fixes them
+# csrc/dense.cu fixes them for both paths
 TILE = 128
 STAGE = 64
 # the weight gradient: blocks aimed at (about one wave of the H100's 132
@@ -68,6 +78,29 @@ def weight_slices(m: int, k: int, n: int) -> tuple:
     want = max(1, min(SLICE_BLOCKS // max(tiles, 1), -(-m // SLICE_ROWS_MIN)))
     rows = -(-(-(-m // want)) // STAGE) * STAGE
     return -(-m // rows), rows
+
+
+def tma_path(m: int, k: int, n: int, *pointers: int) -> bool:
+    """Whether K7 runs a layer of ``m`` rows, ``k`` inputs and ``n``
+    outputs, whose bf16 arrays start at the addresses ``pointers``, on its
+    Hopper kernels: every extent above 0 and below 2**31, ``k`` and ``n``
+    multiples of 8 (rows of whole 16-byte units, as TMA reads them) and
+    every array 16-byte aligned. Any other layer takes the first design's
+    kernels (the edge path). ``csrc/dense.cu``'s ``tma_path`` is the same
+    rule."""
+    limit = 1 << 31
+    return (0 < m < limit and 0 < k < limit and 0 < n < limit
+            and k % 8 == 0 and n % 8 == 0
+            and all(p % 16 == 0 for p in pointers))
+
+
+def _count(wrapper, tma: bool) -> None:
+    """One launch of ``wrapper``'s kernel on the path :func:`tma_path`
+    chose."""
+    if tma:
+        wrapper.launches += 1
+    else:
+        wrapper.edge_launches += 1
 
 
 def _relu_grad(y, dy) -> torch.Tensor:
@@ -170,11 +203,12 @@ def dense_forward(x, w, b) -> torch.Tensor:
         return y
     _launch(load_kernels().v2p_dense_forward, "dense forward", dev,
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n)
-    dense_forward.launches += 1
+    _count(dense_forward,
+           tma_path(m, k, n, x.data_ptr(), w.data_ptr(), y.data_ptr()))
     return y
 
 
-dense_forward.launches = 0
+dense_forward.launches = dense_forward.edge_launches = 0
 
 
 def dense_backward_input(w, y, dy) -> torch.Tensor:
@@ -200,11 +234,13 @@ def dense_backward_input(w, y, dy) -> torch.Tensor:
     _launch(load_kernels().v2p_dense_backward_input, "dense input gradient",
             dev, w.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), m,
             k, n)
-    dense_backward_input.launches += 1
+    _count(dense_backward_input,
+           tma_path(m, k, n, w.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr()))
     return dx
 
 
-dense_backward_input.launches = 0
+dense_backward_input.launches = dense_backward_input.edge_launches = 0
 
 
 def dense_backward_weight(x, y, dy, gw, gb) -> None:
@@ -233,13 +269,15 @@ def dense_backward_weight(x, y, dy, gw, gb) -> None:
             dev, x.data_ptr(), y.data_ptr(), dy.data_ptr(), m, k, n, slices,
             rows, part.data_ptr(), part[slices * k * n:].data_ptr(),
             gw.data_ptr(), gb.data_ptr())
-    dense_backward_weight.launches += 1
+    _count(dense_backward_weight,
+           tma_path(m, k, n, x.data_ptr(), y.data_ptr(), dy.data_ptr()))
     return None
 
 
-dense_backward_weight.launches = 0
+dense_backward_weight.launches = dense_backward_weight.edge_launches = 0
 
-# the wrappers (and their launch counters), forward then gradient
+# the wrappers (and their launch counters: ``launches`` on the Hopper path,
+# ``edge_launches`` on the first design's), forward then gradient
 KERNELS = (dense_forward, dense_backward_input, dense_backward_weight)
 
 

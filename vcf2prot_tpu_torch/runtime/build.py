@@ -28,8 +28,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vcf2prot_tpu_torch")
 
 # sm_90a: the Hopper target with the architecture-specific instructions
-# (wgmma, setmaxnreg) that later kernels may use; -Xptxas=-v writes each
-# kernel's registers and spills into the build log kept beside the library.
+# that K7's Hopper path uses (csrc/dense.cu: wgmma, setmaxnreg, beside TMA
+# and mbarriers); -Xptxas=-v writes each kernel's registers and spills into
+# the build log kept beside the library. No link flag names libcuda:
+# dense.cu finds cuTensorMapEncodeTiled through the runtime.
 # Each source compiles to an object in its own nvcc process, all started
 # together, and one more nvcc links the objects into the library.
 NVCC_FLAGS = (

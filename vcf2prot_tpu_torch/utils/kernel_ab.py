@@ -45,11 +45,13 @@ for bit to the plain versions; any other (the first design, a variant
 summing in another order) within K6_TOL of a float64 reference. Each is then timed A, B, ..., B, A each way, launched alone and
 in a CUDA graph.
 K7's sources hold ``v2p_dense_forward``, ``v2p_dense_backward_input``
-and ``v2p_dense_backward_weight`` (the ABI of ``csrc/dense.cu``). No
-cohort: each version runs K7_LAYERS on seeded random layers, checked
-against the plain versions within ``dense.bf16_within`` (db bit-equal,
-the weight gradient's slices those of ``dense.weight_slices``), then timed
-A, B, ..., B, A, each kernel launched alone and in a CUDA graph.
+and ``v2p_dense_backward_weight`` (the ABI of ``csrc/dense.cu``; its first
+design, ``mma.sync`` fed by ``cp.async``, is kept as
+``chip_archive/dense_first.cu``). No cohort: each version runs K7_LAYERS
+on seeded random layers, checked against the plain versions within
+``dense.bf16_within`` (db bit-equal, the weight gradient's slices those of
+``dense.weight_slices``), then timed A, B, ..., B, A, each kernel launched
+alone and in a CUDA graph.
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
 """
