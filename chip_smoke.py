@@ -11,9 +11,9 @@ failing the run with a non-zero exit:
    computed from (``vcf2prot_tpu_torch/utils/roofline.py``), torch / CUDA /
    nvcc / Triton;
 2. build: K1 (executor), K2 (validator), K3 (window scorer), K4 (its
-   gradient), K5 (adam), K6 (the head's tail) and K7 (the hidden layers
-   after the first) through ``runtime/build.py``, one nvcc per source, all
-   started together;
+   gradient), K5 (adam), K6 (the head's tail), K7 (the hidden layers
+   after the first) and K8 (the fold and its gradient) through
+   ``runtime/build.py``, one nvcc per source, all started together;
 3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
    the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
    and int64, with combined aligned and at an odd address; K2 count-equal
@@ -116,6 +116,20 @@ failing the run with a non-zero exit:
    (``graph_ms``, ``earlier_graph_ms``), beside its bound, its TFLOP/s,
    its plain version and ``torch.matmul`` of the bf16 operands
    (``library_ms``);
+8e. K8 (the fold of the embedding into the first layer, and its gradient
+   added into the head's gradient views) against its plain versions on the
+   card over ``K8_SHAPES`` (k 8/9/11 x E 16/32 x H 8/100/128/512, then k
+   692 and 3,121, past 65,535 table rows, at E 32 x H 100/512) and the
+   128x1 head's fold with every array in a view 4 bytes past alignment:
+   both directions bit-equal (the table, and the sinks, which start from
+   random values), two launches bit-equal; at the 128x1 and 512x3 heads'
+   folds each direction launched alone back to back and its wrapper in a
+   CUDA graph, beside its bound, its plain version, ``torch.matmul`` of
+   embed and w1 (the fold in fp32, no cast: ``library_ms``) and the torch
+   ops it replaces captured in a graph (the forward: the ``einsum`` and
+   its cast; both ways: the forward, K4's table gradient cast to bf16 and
+   autograd's cast back, the ``einsum``'s gradient and the AccumulateGrads
+   of embed, w1 and b1), K8 both ways in a graph beside them;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -125,21 +139,26 @@ failing the run with a non-zero exit:
    ``torch.cuda.set_sync_debug_mode("error")``): holdout AUC within
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
    synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched once
-   a step (replays counted), K6 once forward and once backward a step on
-   every head, K7's three kernels once a step for each of the 512x3 head's
-   two hidden layers after the first; fit walls;
+   a step (replays counted), K6 and K8 once forward and once backward a
+   step on every head, K7's three kernels once a step for each of the
+   512x3 head's two hidden layers after the first; fit walls;
 9b. step times: each head's captured step against its eager one
    (``capture=False``) by CUDA events, beside the step's bound, with the
    shares of K4, K6 and K7; for the 128x1 and 512x3 heads the host
    calls, device kernels and device busy time a step of the epoch loop
    (``torch.profiler``), whose kernel names show K7's Hopper kernels and
    none of its edge path's in the 512x3 loop and no K7 kernel in the
-   128x1 one, then phase 9's fits captured and eager, A B B A, with
-   bit-equal weights;
+   128x1 one; the device kernels a step by name beside the parent's
+   count (``PARENT_STEP_KERNELS``), fewer now, with no cuBLAS product
+   (``gemm``/``bmm``) among them, and in the eager loop no ``aten::bmm``
+   or ``aten::einsum``, no torch op run by an AccumulateGrad and no cast
+   (``aten::_to_copy``) but the hidden weights' bf16 casts; then phase 9's fits captured and
+   eager, A B B A, with bit-equal weights;
 10. the trained 512x3 head saved with ``save_params`` and served by
    ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
-   against ``-g mt``'s fp32 host report, and the training forward against
-   ``ScoringHead`` on the card;
+   against ``-g mt``'s fp32 host report, the training forward against
+   ``ScoringHead`` on the card, and K8's fold of the trained weights on the
+   card bit-equal to ``ScoringHead``'s, made on the CPU;
 11. a 512x3 fit of 1,000,000 9-mers for 2 epochs (windows/s), two 128x1
    fits bit-equal, and 4 steps on the card against the same 4 steps on
    the CPU (plain K3/K4) within 5e-3;
@@ -193,7 +212,7 @@ must have run nowhere on a path: the head's layers always take the Hopper
 one (``tests/test_torch_dense.py`` holds each wrapper's count to the
 pointers and extents its C entry picks the path from; phases 8d and 9b
 also read the kernels' names from the profiler).
-The line before the last is the kernels' JSON summary, K1-K7 (launches
+The line before the last is the kernels' JSON summary, K1-K8 (launches
 summed over the paths, a captured step's counted at each replay; ``ms``
 each kernel's launches alone and ``wrapper_ms`` its wrapper's, back to
 back; each kernel's bound from
@@ -205,7 +224,9 @@ designs' ``earlier_ms`` / ``earlier_graph_ms``, K6 beside
 ``replaced_graph_ms``, the torch ops it replaces captured, and its 512x3
 tail's numbers as ``wide_*``, K7's forward on a serving block as
 ``block_*``, K7 beside its first design's ``earlier_ms`` /
-``earlier_graph_ms`` too, null where they do not apply); the last line is
+``earlier_graph_ms`` too, K8 in a graph beside the torch ops it replaces,
+``replaced_graph_ms``, and both ways as ``pair_graph_ms``, null where they
+do not apply); the last line is
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX package
 ``vcf2prot_tpu``.
 """
@@ -333,8 +354,19 @@ K7_TIMED = ((4096, 512, 512), (131072, 512, 512))
 # K7's first design, timed beside the current one (phase 8d)
 K7_EARLIER = os.path.join(ROOT, "chip_archive", "dense_first.cu")
 K7_TOL = "bf16 equal or 1 ulp, or 2x the fp32 reassociation bound + 1 ulp"
+# K8's folds (phase 8e), k x E x H: the CPU tests' grid, then windows past
+# 691 and k * 21 past 65,535 table rows; the 128x1 head's fold also in
+# views 4 bytes past alignment; the 128x1 and 512x3 heads' folds timed
+K8_SHAPES = tuple((k, e, h) for k in (8, 9, 11) for e in (16, 32)
+                  for h in (8, 100, 128, 512)) + tuple(
+    (k, 32, h) for k in (692, 3121) for h in (100, 512))
+K8_MISALIGNED = (9, 32, 128)
+K8_TIMED = {"128x1": (9, 32, 128), "512x3": (9, 32, 512)}
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
+# device kernels a captured step took before K8, at commit 83e6430
+# (PERF.md, section 5; an NVIDIA H100 80GB HBM3 at 700 W)
+PARENT_STEP_KERNELS = {"128x1": 32.62, "512x3": 41.62}
 # seconds a multi-host child may take (phase 16)
 MULTIHOST_TIMEOUT = 300
 # seconds a default-engine child may take (phases 17-19)
@@ -2257,6 +2289,169 @@ def phase_k7(card):
     return measured
 
 
+def _k8_inputs(k, e_dim, h_dim, gen, misaligned=False):
+    """K8's inputs on the card, from ``gen``: embed (fp32 ``[21, E]``), w1
+    (fp32 ``[k*E, H]``, He-scaled), K4's output rows (fp32 ``[k*21 + 1,
+    H]``) and sinks for the gradients of embed, w1 and b1 holding random
+    values; with ``misaligned``, each in a view 4 bytes past its
+    allocation."""
+    import torch
+
+    def normal(*shape, scale=1.0):
+        t = torch.randn(*shape, generator=gen, device=DEV) * scale
+        return _shifted(t.view(-1), 1).view(t.shape) if misaligned else t
+
+    embed = normal(21, e_dim, scale=0.1)
+    w1 = normal(k * e_dim, h_dim, scale=(2.0 / (k * e_dim)) ** 0.5)
+    rows = normal(k * 21 + 1, h_dim, scale=1e-2)
+    sinks = [normal(21, e_dim, scale=1e-3),
+             normal(k * e_dim, h_dim, scale=1e-3), normal(h_dim, scale=1e-3)]
+    return embed, w1, rows, sinks
+
+
+def phase_k8(card):
+    """8e: K8 (the fold and its gradient, ``csrc/fold.cu``) against its
+    plain versions on the card over K8_SHAPES, and K8_MISALIGNED again in
+    views 4 bytes past alignment: each direction launched twice, bit-equal
+    to each other and to the plain version; then at the K8_TIMED folds
+    each direction timed (module docstring). Returns the numbers by head,
+    then by direction (``"forward"``, ``"backward"``)."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import fold as fd
+    from vcf2prot_tpu_torch.runtime.build import load_kernels
+    from vcf2prot_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(29)
+    cases = [(shape, False) for shape in K8_SHAPES] + [(K8_MISALIGNED, True)]
+    for (k, e_dim, h_dim), misaligned in cases:
+        what = (f"K8 k {k} E {e_dim} H {h_dim}"
+                + (" 4 bytes past alignment" if misaligned else ""))
+        embed, w1, rows, sinks = _k8_inputs(k, e_dim, h_dim, gen, misaligned)
+        tables = [fd.fold_forward(embed, w1) for _ in range(2)]
+        plain = fd.fold_forward_reference(embed, w1)
+        check(torch.equal(tables[0], tables[1]),
+              f"{what}: two forward launches differ")
+        check(torch.equal(tables[0], plain), f"{what}: the table differs "
+              f"from the plain version's in "
+              f"{int((tables[0] != plain).sum())} entries")
+        sums = []
+        for fn in (fd.fold_backward, fd.fold_backward,
+                   fd.fold_backward_reference):
+            out = [s.clone() for s in sinks]
+            fn(rows, embed, w1, *out)
+            sums.append(out)
+        for key, a, b, c in zip(("embed", "w1", "b1"), *sums):
+            check(torch.equal(a, b), f"{what}: two backward launches differ "
+                                     f"in {key}'s gradient")
+            check(torch.equal(a, c), f"{what}: {key}'s gradient differs from "
+                  f"the plain version's (max |d| "
+                  f"{float((a - c).abs().max())})")
+            check(bool(torch.isfinite(a).all()), f"{what}: {key} not finite")
+        check(bool(torch.isfinite(tables[0].float()).all()),
+              f"{what}: the table is not finite")
+    torch.cuda.synchronize()
+    print(f"K8 vs plain on {card}: {len(cases)} cases (k x E x H "
+          f"{', '.join('x'.join(map(str, c)) for c in K8_SHAPES)}; "
+          f"{'x'.join(map(str, K8_MISALIGNED))} also 4 bytes past "
+          f"alignment): the table and the gradients added into sinks "
+          f"holding random values bit-equal to the plain versions, two "
+          f"launches bit-equal")
+
+    lib = load_kernels()
+    timed = {}
+    for head, (k, e_dim, h_dim) in K8_TIMED.items():
+        embed, w1, rows, sinks = _k8_inputs(k, e_dim, h_dim, gen)
+        table = torch.empty((k * 21, h_dim), dtype=torch.bfloat16,
+                            device=DEV)
+        alone = {
+            "forward": _launch_ms(lib.v2p_fold_forward, (
+                embed.data_ptr(), w1.data_ptr(), k, e_dim, h_dim,
+                table.data_ptr()), "fold"),
+            "backward": _launch_ms(lib.v2p_fold_backward, (
+                rows.data_ptr(), embed.data_ptr(), w1.data_ptr(), k, e_dim,
+                h_dim, *(s.data_ptr() for s in sinks)), "fold gradient")}
+        wrappers = {
+            "forward": lambda: fd.fold_forward(embed, w1),
+            "backward": lambda: fd.fold_backward(rows, embed, w1, *sinks)}
+        plains = {
+            "forward": lambda: fd.fold_forward_reference(embed, w1),
+            "backward": lambda: fd.fold_backward_reference(rows, embed, w1,
+                                                           *sinks)}
+        w3 = w1.view(k, e_dim, h_dim)
+        library, _ = _cuda_ms(lambda: torch.matmul(embed, w3),
+                              inner=BACK_TO_BACK)
+        class Layer1Rows(torch.autograd.Function):
+            """Stands where the parent's WindowLayer1 stood behind the
+            fold: its backward hands on K4's output rows as that layer's
+            did (the table's gradient cast to bf16, b1's in fp32); its
+            forward gives an empty tensor (no kernel)."""
+
+            @staticmethod
+            def forward(ctx, table, b1, rows):
+                ctx.rows = rows
+                return rows.new_empty(0)
+
+            @staticmethod
+            def backward(ctx, _g):
+                return ctx.rows[:-1].to(torch.bfloat16), ctx.rows[-1], None
+
+        # the torch ops K8 replaces: the fold and its cast; both ways, with
+        # autograd of them into leaves whose gradients accumulate in place
+        leaves = [t.clone().requires_grad_() for t in (embed, w1, sinks[2])]
+        for leaf in leaves:
+            leaf.grad = torch.zeros_like(leaf)
+
+        def torch_fold(e, w):
+            return torch.einsum("ve,keh->kvh", e, w.reshape(
+                k, e_dim, h_dim)).reshape(k * 21, h_dim).to(
+                    torch.bfloat16).contiguous()
+
+        def replaced_both():
+            out = Layer1Rows.apply(torch_fold(*leaves[:2]), leaves[2], rows)
+            out.backward(out)
+
+        def pair():
+            fd.fold_backward(rows, embed, w1, *sinks)
+            return fd.fold_forward(embed, w1)
+
+        replaced_fwd = _graph_ms(lambda: torch_fold(embed, w1))
+        replaced_pair = _graph_ms(replaced_both)
+        pair_graph = _graph_ms(pair)
+        numbers = {}
+        for part in roofline.FOLD_PARTS:
+            wrapper, _ = _cuda_ms(wrappers[part], inner=BACK_TO_BACK)
+            plain, _ = _cuda_ms(plains[part])
+            graph = _graph_ms(wrappers[part])
+            bound, by = roofline.fold_bound_ms(k, e_dim, h_dim, part)
+            numbers[part] = dict(
+                max_abs_err=0.0, ms=alone[part], graph_ms=graph,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                wrapper_ms=wrapper,
+                library_ms=library if part == "forward" else None,
+                replaced_graph_ms=(replaced_fwd if part == "forward"
+                                   else replaced_pair),
+                pair_graph_ms=pair_graph)
+            print(f"K8 {part}, the {head} head's fold (k {k}, E {e_dim}, H "
+                  f"{h_dim}) on {card}: launched alone back to back "
+                  f"{alone[part]:.4f} ms, in a CUDA graph {graph:.4f} ms "
+                  f"({100 * bound / graph:.1f}% of the {bound:.6f} ms bound "
+                  f"by {by}), wrapper {wrapper:.4f} ms, plain {plain:.4f} ms"
+                  + (f"; torch.matmul of embed and w1 (fp32, no cast) "
+                     f"{library:.4f} ms; the einsum and cast it replaces "
+                     f"{replaced_fwd:.4f} ms in a CUDA graph"
+                     if part == "forward" else ""))
+        print(f"K8 both ways, the {head} head's fold, on {card}: in a CUDA "
+              f"graph {pair_graph:.4f} ms; the torch ops they replace (the "
+              f"einsum and its cast, the table gradient's casts, the "
+              f"einsum's gradient, the AccumulateGrads of embed, w1 and b1) "
+              f"{replaced_pair:.4f} ms in a CUDA graph")
+        timed[head] = numbers
+    torch.cuda.empty_cache()
+    return timed
+
+
 @contextlib.contextmanager
 def dense_counts(edge=False):
     """K7's launch counts on its Hopper path from zero for the body, read
@@ -2314,10 +2509,11 @@ def phase_train(card):
     training path), through the functions of tools/train_synth_mhc.py,
     each step a replay of its captured graph and every epoch loop under
     ``set_sync_debug_mode("error")``; returns the trained weights by head
-    and the path's K3-K7 launches (replays counted)."""
+    and the path's K3-K8 launches (replays counted)."""
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.adam import adam_update
     from vcf2prot_tpu_torch.downstream.dense import KERNELS as DENSE_KERNELS
+    from vcf2prot_tpu_torch.downstream.fold import fold_backward, fold_forward
     from vcf2prot_tpu_torch.downstream.head_tail import (
         head_tail_backward,
         head_tail_forward,
@@ -2341,16 +2537,20 @@ def phase_train(card):
     adam_update.launches = 0
     for f in DENSE_KERNELS:
         f.launches = f.edge_launches = 0
-    aucs, trained, k6 = {}, {}, {}
+    aucs, trained, k6, k8 = {}, {}, {}, {}
     for name, shape in TRAIN_HEADS.items():
         head_tail_forward.launches = head_tail_backward.launches = 0
+        fold_forward.launches = fold_backward.launches = 0
         with epoch_loop_watch():
             trained[name], aucs[name], wall = mhc.train_config(
                 win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
         k6[name] = (head_tail_forward.launches, head_tail_backward.launches)
-        # K6 once each way a step, on every head
+        k8[name] = (fold_forward.launches, fold_backward.launches)
+        # K6 and K8 once each way a step, on every head
         want = (steps + train.CAPTURE_WARMUP,) * 2
         check(k6[name] == want, f"{name}: K6 launched {k6[name]} times "
+              f"(forward, backward), not {want}")
+        check(k8[name] == want, f"{name}: K8 launched {k8[name]} times "
               f"(forward, backward), not {want}")
         print(f"train {name} on {card}: holdout AUC {aucs[name]:.4f} "
               f"(JAX package's artifact {artifact[name]:.4f}, oracle "
@@ -2366,9 +2566,12 @@ def phase_train(card):
                 "adam_update": adam_update.launches,
                 "head_tail_forward": sum(f for f, _b in k6.values()),
                 "head_tail_backward": sum(b for _f, b in k6.values()),
-                **{f.__name__: f.launches for f in DENSE_KERNELS}}
-    print(f"K6 launches by head (forward, backward; {steps} steps and "
-          f"{train.CAPTURE_WARMUP} warm-up steps a fit): {k6}")
+                **{f.__name__: f.launches for f in DENSE_KERNELS},
+                "fold_forward": sum(f for f, _b in k8.values()),
+                "fold_backward": sum(b for _f, b in k8.values())}
+    print(f"K6 and K8 launches by head (forward, backward; {steps} steps "
+          f"and {train.CAPTURE_WARMUP} warm-up steps a fit): K6 {k6}, K8 "
+          f"{k8}")
     # each fit: CAPTURE_WARMUP steps, then one replay a step (K3 also
     # scores each holdout)
     want = len(TRAIN_HEADS) * (steps + train.CAPTURE_WARMUP)
@@ -2463,12 +2666,22 @@ def k7_paths(names):
             if m}
 
 
+# cuBLAS's and CUTLASS's product kernels, as the profiler names them: none
+# may run in a training step (K7 takes the hidden layers, K8 the fold)
+LIBRARY_PRODUCT = re.compile(r"gemm|bmm", re.IGNORECASE)
+
+
 def _fit_profile(win, labels, n_tr, shape, capture):
     """One 2-epoch fit of the MHC task, its epoch loop alone under
-    ``torch.profiler``: ``(host calls that put work on a stream, device
-    kernels and copies, device busy ms)`` a step (zeros where the
-    profiler records no such event), the host calls a step by name, and
-    the K7 paths whose kernels ran (:func:`k7_paths`)."""
+    ``torch.profiler``: a dict of the host calls that put work on a stream
+    a step (``calls``, and ``by_call`` by name), the device kernels and
+    copies a step (``kernels``, and ``names`` by name), the device busy ms
+    a step (``busy``; zeros where the profiler records no such event), the
+    host's ``aten::`` events a step by name (``ops``: the eager step's
+    torch ops; a replay records none), the ``aten::`` ops run inside an
+    AccumulateGrad a step (``accumulated``: autograd adding a gradient
+    into place; one whose gradient went to a sink runs none), and the K7
+    paths whose kernels ran (``k7``, :func:`k7_paths`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2482,26 +2695,40 @@ def _fit_profile(win, labels, n_tr, shape, capture):
         train.fit(win[:n_tr], labels[:n_tr], epochs=epochs,
                   batch_size=MHC_BATCH, seed=0, device=DEV, capture=capture,
                   params=init_params(NEO_K, seed=0, **shape))
-    calls, kernels, busy = {}, 0.0, 0.0
+    calls, names, ops, busy = {}, {}, {}, 0.0
     for ev in prof.key_averages():
         if ev.key in LAUNCH_CALLS:
             calls[ev.key] = ev.count / steps
         total = getattr(ev, "device_time_total", 0) or 0
         if total and getattr(ev, "device_type", None) == \
                 torch.autograd.DeviceType.CUDA:
-            kernels += ev.count
+            names[ev.key] = ev.count / steps
             busy += total / 1e3
-    return (sum(calls.values()), kernels / steps, busy / steps, calls,
-            k7_paths(device_kernels(prof)))
+        elif ev.key.startswith("aten::"):
+            ops[ev.key] = ev.count / steps
+    accumulated = 0
+    for ev in prof.events():
+        parent = ev.cpu_parent
+        while parent is not None and "AccumulateGrad" not in parent.name:
+            parent = parent.cpu_parent
+        accumulated += ev.name.startswith("aten::") and parent is not None
+    return {"calls": sum(calls.values()), "by_call": calls,
+            "kernels": sum(names.values()), "names": names,
+            "busy": busy / steps, "ops": ops,
+            "accumulated": accumulated / steps,
+            "k7": k7_paths(device_kernels(prof))}
 
 
-def phase_step_times(card, k4, k6, k7):
+def phase_step_times(card, k4, k6, k7, k8):
     """9b: the captured step against the eager one (``capture=False``):
     device time a step, host calls and device kernels a step, the shares of
-    K4, K6 and (512x3) K7, K7's kernels by the profiler's names (the Hopper
-    path's alone at 512x3, none at 128x1), then phase 9's fits captured
-    against eager, A B B A, with their weights bit-equal; beside each
-    head's bound from ``utils/roofline.py``."""
+    K4, K6, K8 and (512x3) K7, K7's kernels by the profiler's names (the
+    Hopper path's alone at 512x3, none at 128x1), the device kernels a
+    step by name against the parent's count, no library product, no torch
+    op run by an AccumulateGrad and no cast but K7's operands' in the eager
+    step, then
+    phase 9's fits captured against eager, A B B A, with their weights
+    bit-equal; beside each head's bound from ``utils/roofline.py``."""
     import numpy as np
 
     from vcf2prot_tpu_torch.downstream import train
@@ -2520,17 +2747,21 @@ def phase_step_times(card, k4, k6, k7):
               for n, v in step.items()))
     k6_ms = {"128x1": k6["forward"]["pair_graph_ms"],
              "512x3": k6["forward"]["wide_pair_graph_ms"]}
+    k8_ms = {name: k8[name]["forward"]["pair_graph_ms"] for name in HEADS}
     for name in HEADS:
         params = init_params(NEO_K, seed=0, **HEADS[name])
         bound, by = roofline.train_step_bound_ms(params, MHC_BATCH)
         k4_ms = k4[(name, K4_ROWS[0])]["ms"]
         print(f"{name} step bound {bound:.6f} ms by {by} "
-              f"(utils/roofline.py: K3, the products, their gradients, K4, "
-              f"K5); captured step {100 * bound / step[name]['captured']:.1f}% "
-              f"of it; K4 {k4_ms:.4f} ms, "
+              f"(utils/roofline.py: K8, K3, the products, their gradients, "
+              f"K4, K8's gradient, K5); captured step "
+              f"{100 * bound / step[name]['captured']:.1f}% of it; K4 "
+              f"{k4_ms:.4f} ms, "
               f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
               f"step; K6 both ways in a graph {k6_ms[name]:.4f} ms, "
-              f"{100 * k6_ms[name] / step[name]['captured']:.1f}%")
+              f"{100 * k6_ms[name] / step[name]['captured']:.1f}%; K8 both "
+              f"ways in a graph {k8_ms[name]:.4f} ms, "
+              f"{100 * k8_ms[name] / step[name]['captured']:.1f}%")
     # K7 a 512x3 step: its three kernels in a graph, for each of the two
     # hidden layers after the first (all 512 -> 512 at MHC_BATCH rows)
     layers = HEADS["512x3"]["depth"] - 1
@@ -2549,18 +2780,50 @@ def phase_step_times(card, k4, k6, k7):
         print(f"{name} epoch loop on {card} (torch.profiler, 2 epochs, a "
               f"step: host calls that put work on a stream / device kernels "
               f"and copies / device busy ms): " + "; ".join(
-                  f"{mode} {h:.2f} / {kn:.2f} / {b:.4f} ("
-                  + ", ".join(f"{c} {v:.2f}" for c, v in calls.items()) + ")"
-                  for mode, (h, kn, b, calls, _k7) in per.items())
+                  f"{mode} {v['calls']:.2f} / {v['kernels']:.2f} / "
+                  f"{v['busy']:.4f} (" + ", ".join(
+                      f"{c} {n:.2f}" for c, n in v["by_call"].items()) + ")"
+                  for mode, v in per.items())
               + "; K7 kernels the profiler saw: " + "; ".join(
-                  f"{mode} {sorted(v[-1]) or 'none'}"
+                  f"{mode} {sorted(v['k7']) or 'none'}"
                   for mode, v in per.items()))
         # what the card ran: the 512x3 head's layers on the Hopper path
         # alone, the 1-deep head with no layer for K7
         want = {"hopper"} if TRAIN_HEADS[name]["depth"] > 1 else set()
         for mode, v in per.items():
-            check(v[-1] == want, f"{name} {mode} epoch loop: the profiler "
-                  f"saw K7's {sorted(v[-1])} kernels, not {sorted(want)}")
+            check(v["k7"] == want, f"{name} {mode} epoch loop: the profiler "
+                  f"saw K7's {sorted(v['k7'])} kernels, not {sorted(want)}")
+        # the fold and its gradient: K8, and none of the torch ops it
+        # replaced (a cuBLAS bmm each way, the casts, the AccumulateGrads)
+        got = per["captured"]["kernels"]
+        print(f"{name} captured step on {card}: {got:.2f} device kernels "
+              f"and copies a step, against {PARENT_STEP_KERNELS[name]:.2f} "
+              f"before K8 (commit 83e6430, PERF.md section 5), by name: "
+              + "; ".join(f"{n:.2f} {key[:100]}" for key, n in sorted(
+                  per["captured"]["names"].items(), key=lambda kv: -kv[1])))
+        check(got < PARENT_STEP_KERNELS[name], f"{name}: {got:.2f} device "
+              f"kernels a captured step, not fewer than "
+              f"{PARENT_STEP_KERNELS[name]:.2f} before K8")
+        for mode, v in per.items():
+            products = [key for key in v["names"]
+                        if LIBRARY_PRODUCT.search(key)]
+            check(not products, f"{name} {mode} step: library products "
+                  f"{products}")
+        ops = per["eager"]["ops"]
+        accumulated = per["eager"]["accumulated"]
+        casts = ops.get("aten::_to_copy", 0.0)
+        print(f"{name} eager step on {card}, host-side torch ops a step: "
+              + ", ".join(f"{key} {n:.2f}" for key, n in sorted(
+                  ops.items(), key=lambda kv: -kv[1])))
+        check(not ops.get("aten::bmm") and not ops.get("aten::einsum"),
+              f"{name} eager step: the fold's einsum or bmm ran")
+        check(accumulated == 0, f"{name} eager step: {accumulated:.2f} "
+              f"torch ops a step inside AccumulateGrads (every gradient "
+              f"goes to a sink)")
+        # the only casts left: the hidden weights' bf16 casts (K7's)
+        check(casts <= shape["depth"] - 1, f"{name} eager step: "
+              f"{casts:.2f} casts a step, more than the {shape['depth'] - 1} "
+              f"hidden weights' bf16 casts")
         kw = dict(epochs=MHC_EPOCHS, batch_size=MHC_BATCH, seed=0,
                   device=DEV, params=init_params(NEO_K, seed=0, **shape))
         walls, fits = {"captured": [], "eager": []}, {}
@@ -2606,16 +2869,14 @@ def phase_serve_trained(card, workdir, vcf, fa, params):
         table = fold_table(trainable.embed, trainable.w1)
     want = score_windows(win[n_tr:], serving)
     d = float((got - want).abs().max())
-    t_diff = table.float() - serving.table.float()
-    rel = float((t_diff.abs() / serving.table.float().abs()
-                 .clamp_min(1e-30)).max())
+    differ = int((table != serving.table).sum())
     print(f"trained 512x3 on {card}: training forward against ScoringHead "
           f"(fold on the CPU) max |d| {d} over {want.numel()} windows "
-          f"(max |score| {float(want.abs().max())}); folded tables differ "
-          f"in {int((t_diff != 0).sum())} of {table.numel()} entries, max "
-          f"relative {rel}")
-    check(rel <= 2.0 ** -7, f"the card's fold differs by more than 1 bf16 "
-                            f"ulp ({rel})")
+          f"(max |score| {float(want.abs().max())}); K8's folded table on "
+          f"the card differs from the CPU's plain fold in {differ} of "
+          f"{table.numel()} entries")
+    check(differ == 0 and torch.equal(table, serving.table),
+          "K8's fold on the card is not bit-equal to the CPU's")
     tol = TRAINED_TOL * max(1.0, float(want.abs().max()))
     check(d <= tol, f"training and serving forwards differ by {d} > {tol}")
 
@@ -2855,12 +3116,13 @@ def dp_gaps(name, seeds, fault=False):
 
 def phase_dp_train(card):
     """15: the data-parallel fit over the repeated-card mesh (the fit's
-    step function and epoch loop, eager); returns the path's K3, K4 and K5
-    launches."""
+    step function and epoch loop, eager); returns the path's K3, K4, K5, K6
+    and K8 launches."""
     import numpy as np
     import torch
 
     from vcf2prot_tpu_torch.downstream.adam import adam_update
+    from vcf2prot_tpu_torch.downstream.fold import fold_backward, fold_forward
     from vcf2prot_tpu_torch.downstream.head_tail import (
         head_tail_backward,
         head_tail_forward,
@@ -2884,6 +3146,7 @@ def phase_dp_train(card):
     window_layer1.launches = window_layer1_backward.launches = 0
     adam_update.launches = 0
     head_tail_forward.launches = head_tail_backward.launches = 0
+    fold_forward.launches = fold_backward.launches = 0
     for name in DP_HEADS:
         t0 = time.perf_counter()
         params = train.fit(
@@ -2907,7 +3170,9 @@ def phase_dp_train(card):
                 "window_layer1_backward": window_layer1_backward.launches,
                 "adam_update": adam_update.launches,
                 "head_tail_forward": head_tail_forward.launches,
-                "head_tail_backward": head_tail_backward.launches}
+                "head_tail_backward": head_tail_backward.launches,
+                "fold_forward": fold_forward.launches,
+                "fold_backward": fold_backward.launches}
     check(all(launches.values()), f"a kernel of the dp fit never ran: "
                                   f"{launches}")
     for name in DP_HEADS:
@@ -3068,6 +3333,9 @@ def main():
         measured["head_tail_backward"] = k6["backward"]
         k7 = phase_k7(card)
         measured.update(k7)
+        k8 = phase_k8(card)
+        measured["fold_forward"] = k8["128x1"]["forward"]
+        measured["fold_backward"] = k8["128x1"]["backward"]
         fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
                                       pairs=False)
         neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
@@ -3109,7 +3377,7 @@ def main():
         trained, paths["training"] = phase_train(card)
         check(all(paths["training"].values()),
               f"a kernel of the training path never ran: {paths['training']}")
-        phase_step_times(card, k4, k6, k7)
+        phase_step_times(card, k4, k6, k7, k8)
         with dense_counts() as counts:
             phase_serve_trained(card, workdir, *small, trained["512x3"])
         paths["trained head served"] = counts
@@ -3138,6 +3406,10 @@ def main():
                                  "vcf2prot_tpu/downstream/train.py:157"),
         "dense_backward_weight": ("vcf2prot_tpu_torch/csrc/dense.cu",
                                   "vcf2prot_tpu/downstream/train.py:157"),
+        "fold_forward": ("vcf2prot_tpu_torch/csrc/fold.cu",
+                         "vcf2prot_tpu/downstream/scoring.py:144"),
+        "fold_backward": ("vcf2prot_tpu_torch/csrc/fold.cu",
+                          "vcf2prot_tpu/downstream/train.py:157"),
     }
     launches = dict.fromkeys(meta, 0)
     for counts in paths.values():

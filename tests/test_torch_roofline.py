@@ -103,16 +103,18 @@ def test_scorer_counts():
 # K5's bytes and one training step's bound at 4,096 rows, as PERF.md
 # records them
 STEP_BOUNDS = {
-    "128x1": (37_793, 1_058_204, 0.0003, (0.0026, "bytes"),
-              {"K3": (1_167_104, 4_718_592, 0), "K7": (0, 0, 0),
+    "128x1": (37_793, 1_058_204, 0.0003, (0.0028, "bytes"),
+              {"K8": (198_528, 1_548_288, 0),
+               "K3": (1_167_104, 4_718_592, 0), "K7": (0, 0, 0),
                "K7's gradients": (0, 0, 0),
                "products": (1_065_472, 1_048_576, 0),
                "products' gradients": (3_163_136, 2_097_152, 0),
                "K4": (2_264_064, 4_718_592, 0),
+               "K8's gradient": (548_736, 3_096_704, 0),
                "K5": (1_058_204, 529_102, 0)}),
     # K7's products on the tensor cores: bytes bound the step, where the
     # same products at the fp32 peak gave 0.1932 ms
-    "512x3": (674_465, 18_885_020, 0.0056, (0.0365, "bytes"), None),
+    "512x3": (674_465, 18_885_020, 0.0056, (0.0374, "bytes"), None),
 }
 
 
@@ -126,8 +128,9 @@ def test_adam_and_training_step_bounds(head):
     bound, by = roofline.bound_ms(adam, roofline.adam_ops(n_params))
     assert (round(bound, 4), by) == (adam_ms, "bytes")
     costs = roofline.train_step_costs(params, 4096)
-    assert list(costs) == ["K3", "K7", "K7's gradients", "products",
-                           "products' gradients", "K4", "K5"]
+    assert list(costs) == ["K8", "K3", "K7", "K7's gradients", "products",
+                           "products' gradients", "K4", "K8's gradient",
+                           "K5"]
     if parts is not None:
         assert costs == parts
     assert costs["K5"] == (adam, roofline.adam_ops(n_params), 0)
@@ -168,6 +171,34 @@ def test_dense_counts(rows, k, n):
     # at a training batch the tensor cores would take 0.0022 ms
     assert roofline.bound_ms(0, 0, 2 * 4096 * 512 * 512)[0] == pytest.approx(
         2 * 4096 * 512 * 512 / 989.4e12 * 1e3)
+
+
+@pytest.mark.parametrize("k,e_dim,h_dim", [(9, 32, 128), (9, 32, 512),
+                                           (3121, 4, 8)])
+def test_fold_counts(k, e_dim, h_dim):
+    """K8's bytes (fp32 embed, w1 and gradients, the bf16 table) and
+    operations, counted element by element, and its bounds at the 128x1
+    and 512x3 heads as PERF.md records them."""
+    embed, w1, b1 = 21 * e_dim, k * e_dim * h_dim, h_dim
+    table = k * 21 * h_dim
+    assert roofline.fold_bytes(k, e_dim, h_dim, "forward") == (
+        4 * (embed + w1) + 2 * table)
+    assert roofline.fold_bytes(k, e_dim, h_dim, "backward") == (
+        4 * (table + h_dim) + 4 * (embed + w1) + 8 * (embed + w1 + b1))
+    assert roofline.fold_ops(k, e_dim, h_dim, "forward") == 2 * table * e_dim
+    assert roofline.fold_ops(k, e_dim, h_dim, "backward") == (
+        4 * table * e_dim + h_dim)
+    for part in roofline.FOLD_PARTS:
+        assert roofline.fold_bound_ms(k, e_dim, h_dim, part) == (
+            roofline.bound_ms(roofline.fold_bytes(k, e_dim, h_dim, part),
+                              roofline.fold_ops(k, e_dim, h_dim, part)))
+    want = {(9, 32, 128): ((0.00006, "bytes"), (0.00016, "bytes")),
+            (9, 32, 512): ((0.00023, "bytes"), (0.00065, "bytes"))}.get(
+                (k, e_dim, h_dim))
+    if want is not None:
+        assert tuple((round(ms, 5), by) for ms, by in (
+            roofline.fold_bound_ms(k, e_dim, h_dim, part)
+            for part in roofline.FOLD_PARTS)) == want
 
 
 def test_tensor_operations_use_the_bf16_peak():

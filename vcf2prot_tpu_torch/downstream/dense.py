@@ -54,7 +54,8 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime.build import check_launch, load_kernels
+from ..runtime.build import launch as _launch
+from ..runtime.build import load_kernels
 
 # K7's output tile (rows and columns) and reduction stage, as
 # csrc/dense.cu fixes them for both paths
@@ -175,12 +176,6 @@ def _device(*tensors) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _launch(fn, what: str, dev, *args) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        check_launch(fn(*args, stream), what)
 
 
 def dense_forward(x, w, b) -> torch.Tensor:

@@ -8,7 +8,9 @@ arrays from the same seed); :meth:`ScoringHead.from_params` carries such a
 dictionary onto a device.
 
 Numerics follow the reference's: the embedding is folded into the first
-layer in fp32 and cast to bf16 (``folded``, ``[k*21, H]``); every product
+layer in fp32 and cast to bf16 (``folded``, ``[k*21, H]``; K8,
+``csrc/fold.cu``, :mod:`~vcf2prot_tpu_torch.downstream.fold`, on the
+card, its plain version on the CPU); every product
 takes bf16 operands and gives an fp32 result, to which the bias is added
 and ReLU applied in fp32. Layer 1 is K3 (``csrc/scorer.cu``), a sum of the
 k folded rows that a window's residues select, in i order
@@ -22,9 +24,11 @@ so with TF32 off this is the reference's bf16 x bf16 -> fp32 product.
 
 Training (``downstream/train.py``) runs the same forward through
 :class:`TrainableHead`: fp32 parameters, cast to bf16 inside the graph, and
-layer 1 as :class:`WindowLayer1`, K3 with K4 (``csrc/scorer_grad.cu``) as
-its gradient. The casts inside the graph round each cotangent of a bf16
-operand to bf16, where XLA's gradient of the reference rounds it.
+layer 1 as :class:`FoldedLayer1`: K8's fold then K3 forward, K4
+(``csrc/scorer_grad.cu``) then K8's gradient backward, which adds the
+gradients of ``embed``, ``w1`` and ``b1`` into the head's gradient views.
+Each cotangent of a bf16 operand is rounded to bf16, where XLA's gradient
+of the reference rounds it (by a cast inside the graph, or in K8).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from torch import nn
 from ..runtime.build import check_launch, load_kernels
 from ..runtime.pack import pad_to_bucket
 from .dense import DenseLayer
+from .fold import fold_backward, fold_forward
 from .head_tail import HeadTail
 from .peptides import (
     ALPHABET,
@@ -338,17 +343,23 @@ def window_layer1_backward(buf, pos, k: int, h1, g):
 
 def _layer1_backward(buf, pos, k: int, h1, g):
     """:func:`window_layer1_backward` on checked arguments."""
+    out = _layer1_backward_rows(buf, pos, k, h1, g)
+    return out[:-1], out[-1]
+
+
+def _layer1_backward_rows(buf, pos, k: int, h1, g) -> torch.Tensor:
+    """K4's output on checked arguments: fp32 ``[k*21 + 1, H]``, dtable's
+    rows, then db1 (K8's backward reads the buffer whole)."""
     if buf.device.type == "cpu":
-        return window_layer1_backward_reference(buf, pos, k, h1, g)
+        dtable, db1 = window_layer1_backward_reference(buf, pos, k, h1, g)
+        return torch.cat([dtable, db1[None]])
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
     m, h_dim = h1.shape
-    # dtable's rows, then db1: one buffer, two views
     out = torch.empty((k * VOCAB + 1, h_dim), dtype=torch.float32,
                       device=buf.device)
     if m == 0 or h_dim == 0:
-        out.zero_()
-        return out[:-1], out[-1]
+        return out.zero_()
     # the tiles are a function of M alone, so is the summation order
     tiles, _rows = _k4_tiles(m)
     partial = torch.empty(tiles * out.numel(), dtype=torch.float32,
@@ -366,7 +377,7 @@ def _layer1_backward(buf, pos, k: int, h1, g):
             "window scorer gradient",
         )
     window_layer1_backward.launches += 1
-    return out[:-1], out[-1]
+    return out
 
 
 window_layer1_backward.launches = 0
@@ -398,6 +409,37 @@ class WindowLayer1(torch.autograd.Function):
         return None, None, None, dtable.to(torch.bfloat16), db1
 
 
+class FoldedLayer1(torch.autograd.Function):
+    """Layer 1 in training, from the fp32 parameters: K8's fold of
+    ``embed`` and ``w1`` (:func:`~vcf2prot_tpu_torch.downstream.fold.
+    fold_forward`), then K3 over windows the caller keeps inside ``buf``
+    (their bounds are not checked, so neither direction waits for the
+    device). The backward runs K4, then K8's gradient
+    (:func:`~vcf2prot_tpu_torch.downstream.fold.fold_backward`), which adds
+    the gradients of ``embed``, ``w1`` and ``b1`` into ``sinks``, the
+    head's views of its flat gradient buffer (where autograd would
+    accumulate them); none goes through autograd."""
+
+    @staticmethod
+    def forward(ctx, buf, pos, k, embed, w1, b1, sinks):
+        table = fold_forward(embed, w1)
+        _check_layer1_args(buf, pos, k, table, b1)
+        h1 = _launch_layer1(buf, pos, k, table, b1)
+        ctx.save_for_backward(buf, pos, h1, embed, w1)
+        ctx.k = k
+        ctx.sinks = sinks
+        return h1
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, pos, h1, embed, w1 = ctx.saved_tensors
+        g = g.contiguous()
+        _check_layer1_grad_args(buf, pos, ctx.k, h1, g)
+        fold_backward(_layer1_backward_rows(buf, pos, ctx.k, h1, g), embed,
+                      w1, *ctx.sinks)
+        return (None,) * 7
+
+
 def tf32_matmul_on() -> bool:
     """True when fp32 products on the card may run in TF32 (any of the
     three switches torch has had for it)."""
@@ -425,15 +467,10 @@ def head_shape(params: dict) -> tuple:
     return names, n_in // e_dim
 
 
-def fold_table(embed, w1) -> torch.Tensor:
-    """The folded first layer, bf16 ``[k*21, H]``: ``einsum("ve,keh->kvh")``
-    of the fp32 embedding ``[21, E]`` and ``w1`` ``[k*E, H]``, rounded to
-    bf16 (``scoring.py:144-146`` of the reference)."""
-    e_dim, h_dim = embed.shape[1], w1.shape[1]
-    k = w1.shape[0] // e_dim
-    return torch.einsum(
-        "ve,keh->kvh", embed, w1.reshape(k, e_dim, h_dim)
-    ).reshape(k * VOCAB, h_dim).to(torch.bfloat16).contiguous()
+# The folded first layer, bf16 ``[k*21, H]``, of the fp32 embedding and
+# ``w1`` (``scoring.py:144-146`` of the reference): K8 on CUDA tensors, its
+# plain version, which gives the kernel's bits, on CPU tensors
+fold_table = fold_forward
 
 
 def _require_fp32_products(t) -> None:
@@ -501,7 +538,8 @@ class ScoringHead(nn.Module):
     def from_params(cls, params: dict) -> "ScoringHead":
         """The port's head of a JAX-package weight dictionary (``embed``,
         ``w1``/``b1`` .. ``wN``/``bN``); the fold is computed here, once,
-        in fp32 on the CPU."""
+        by K8's plain version on the CPU (:func:`fold_table`), which gives
+        the bits K8 gives a training head on the card."""
         names, k = head_shape(params)
         table = fold_table(
             torch.as_tensor(np.asarray(params["embed"], np.float32)),
@@ -563,11 +601,11 @@ class TrainableHead(nn.Module):
     ``wN``/``bN``), for training (``downstream/train.py``).
 
     The forward is :class:`ScoringHead`'s: the fold and every bf16 cast run
-    inside the graph, layer 1 is :class:`WindowLayer1` (K3, with K4 as its
-    gradient), the later layers :func:`later_layers` (the hidden ones K7
-    both ways). Training takes a batch's loss from :meth:`loss`, which runs
-    the output layer, the loss and their gradients as K6, whatever the
-    head's depth.
+    inside the graph, layer 1 is :class:`FoldedLayer1` (K8's fold and K3,
+    with K4 and K8's gradient backward), the later layers
+    :func:`later_layers` (the hidden ones K7 both ways). Training takes a
+    batch's loss from :meth:`loss`, which runs the output layer, the loss
+    and their gradients as K6, whatever the head's depth.
 
     The parameters are views of one flat fp32 buffer, ``flat``, in their
     order, and their gradients views of a second, ``flat_grad``, set once
@@ -581,6 +619,8 @@ class TrainableHead(nn.Module):
     def __init__(self, params: dict):
         super().__init__()
         self.names, self.k = head_shape(params)
+        # the training forward's window offsets by (B, device)
+        self._offsets = {}
         for name in ["embed"] + [key for n in self.names
                                  for key in (n, "b" + n[1:])]:
             self.register_parameter(name, nn.Parameter(
@@ -628,16 +668,22 @@ class TrainableHead(nn.Module):
 
     def _layer1(self, windows) -> torch.Tensor:
         """bf16 ``[B, H1]`` of u8 windows ``[B, k]`` on the head's device:
-        :class:`WindowLayer1` over ``arange(B) * k``, windows inside the
+        :class:`FoldedLayer1` over ``arange(B) * k``, windows inside the
         buffer by construction, so K3 runs with no bounds check and never
-        waits for the device."""
+        waits for the device. The offsets are made once per batch size and
+        device, and kept: a step makes none, and a captured step reads the
+        same ones at every replay."""
         b, k = windows.shape
         if k != self.k:
             raise ValueError(f"windows are {k}-mers, the head scores {self.k}")
         buf = windows.reshape(-1).contiguous()
-        pos = torch.arange(b, dtype=torch.int64, device=buf.device) * k
-        return WindowLayer1.apply(buf, pos, k,
-                                  fold_table(self.embed, self.w1), self.b1)
+        pos = self._offsets.get((b, buf.device))
+        if pos is None:
+            pos = torch.arange(b, dtype=torch.int64, device=buf.device) * k
+            self._offsets[(b, buf.device)] = pos
+        return FoldedLayer1.apply(
+            buf, pos, k, self.embed, self.w1, self.b1,
+            (self.grads["embed"], self.grads["w1"], self.grads["b1"]))
 
     def forward(self, windows) -> torch.Tensor:
         """fp32 scores ``[B]`` of u8 windows ``[B, k]`` on the head's

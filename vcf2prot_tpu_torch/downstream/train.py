@@ -4,9 +4,10 @@
 Closes the ``--neoantigen_params`` loop: fit the head on labelled peptide
 windows and save an ``.npz`` in ``load_params``' schema, which the port's
 neoantigen paths serve. The forward is the serving forward
-(:class:`~vcf2prot_tpu_torch.downstream.scoring.TrainableHead`: K3 for
-layer 1 with K4 as its gradient, then K7 for the hidden layers after it,
-both ways), so training and serving cannot skew.
+(:class:`~vcf2prot_tpu_torch.downstream.scoring.TrainableHead`: K8's fold
+and K3 for layer 1 with K4 and K8's gradient as its backward, then K7 for
+the hidden layers after it, both ways), so training and serving cannot
+skew.
 
 What follows the reference exactly: the input checks, the batch size
 (``min(_bucket(batch_size), _bucket(n))``), zero windows padding the rows
@@ -25,9 +26,9 @@ device work with no host wait from the first step to the final fetch: the
 data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
 the rows into static epoch buffers on the device (:func:`_epoch_loop`);
 one training step (the batch picked from those buffers by a step count on
-the device, the forward and the loss, the backward through K3, K7 (the hidden
-layers after the first), K6 both ways (the output layer and the loss) and
-K4, then K5;
+the device, the forward and the loss, the backward through K8 and K3 (the
+fold and layer 1), K7 (the hidden layers after the first), K6 both ways
+(the output layer and the loss), K4 and K8's gradient, then K5;
 :func:`_step_fn`) is captured in a CUDA graph and
 replayed once per batch (:class:`CapturedStep`); each step's loss lands in
 a device tensor, and the weights and losses are fetched once, at the end.
@@ -68,6 +69,7 @@ import torch
 from ..parallel.sharded import as_mesh, per_device
 from .adam import Adam, adam_update
 from .dense import KERNELS as DENSE_KERNELS
+from .fold import KERNELS as FOLD_KERNELS
 from .head_tail import (  # noqa: F401 (batch_loss: the loss of scores)
     batch_loss,
     head_tail_backward,
@@ -87,7 +89,8 @@ from .scoring import (
 CAPTURE_WARMUP = 3
 # the wrappers (and their launch counters) of the kernels a step launches
 STEP_KERNELS = (window_layer1, window_layer1_backward, head_tail_forward,
-                head_tail_backward, adam_update, *DENSE_KERNELS)
+                head_tail_backward, adam_update, *DENSE_KERNELS,
+                *FOLD_KERNELS)
 
 
 def _bucket(n: int, floor: int = 256) -> int:

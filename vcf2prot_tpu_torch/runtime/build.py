@@ -67,6 +67,8 @@ SIGNATURES = {
     "v2p_dense_backward_input": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
     "v2p_dense_backward_weight": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                   _P, _P, _P, _P, _P),
+    "v2p_fold_forward": (_P, _P, _I64, _I64, _I64, _P, _P),
+    "v2p_fold_backward": (_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P),
 }
 
 _LIB = None
@@ -179,3 +181,13 @@ def check_launch(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call the C entry point ``fn`` with ``args`` and the current stream of
+    ``device`` (a CUDA device), and raise as :func:`check_launch` does."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(fn(*args, stream), what)

@@ -234,12 +234,49 @@ def dense_bound_ms(rows: int, k: int, n: int, part: str) -> tuple:
                     *dense_ops(rows, k, n, part))
 
 
+# K8's parts: the fold, its gradient
+FOLD_PARTS = ("forward", "backward")
+
+
+def fold_bytes(k: int, e_dim: int, h_dim: int, part: str) -> int:
+    """K8's compulsory bytes for a head of ``k`` positions, an embedding
+    ``e_dim`` wide and a first layer ``h_dim`` wide: the ``forward`` reads
+    embed (fp32 ``[21, E]``) and w1 (fp32 ``[k*E, H]``) and writes the
+    table (bf16 ``[k*21, H]``); the ``backward`` reads K4's fp32 ``[k*21 +
+    1, H]``, embed and w1, and reads and writes the fp32 gradients of
+    embed, w1 and b1 it adds into."""
+    from ..downstream.peptides import VOCAB
+
+    embed, w1 = VOCAB * e_dim * 4, k * e_dim * h_dim * 4
+    return {"forward": embed + w1 + k * VOCAB * h_dim * 2,
+            "backward": ((k * VOCAB + 1) * h_dim * 4 + embed + w1
+                         + 2 * (embed + w1 + h_dim * 4))}[part]
+
+
+def fold_ops(k: int, e_dim: int, h_dim: int, part: str) -> int:
+    """K8's fp32 operations: a product and an add for each of the fold's
+    ``k*21*E*H`` terms; backward the same for w1's gradient and again for
+    embed's, and an add for each of b1's ``H``."""
+    from ..downstream.peptides import VOCAB
+
+    terms = k * VOCAB * e_dim * h_dim
+    return {"forward": 2 * terms, "backward": 4 * terms + h_dim}[part]
+
+
+def fold_bound_ms(k: int, e_dim: int, h_dim: int, part: str) -> tuple:
+    """``(ms, "bytes" | "operations")`` of K8's ``part`` (:func:`fold_bytes`,
+    :func:`fold_ops`) through :func:`bound_ms`."""
+    return bound_ms(fold_bytes(k, e_dim, h_dim, part),
+                    fold_ops(k, e_dim, h_dim, part))
+
+
 def train_step_costs(params: dict, rows: int) -> dict:
     """``part -> (bytes, fp32 operations, bf16 tensor-core operations)`` of
     one training step of ``rows`` windows with the head ``params`` (int64
-    positions, each window's k bytes read once): K3, K7 (the hidden layers
-    after the first) and its gradients, the ``[H, 1]`` output product and
-    its gradient, K4 and K5. The output product reads its bf16-valued
+    positions, each window's k bytes read once): K8 (the fold), K3, K7 (the
+    hidden layers after the first) and its gradients, the ``[H, 1]`` output
+    product and its gradient, K4, K8's gradient and K5. The output product
+    reads its bf16-valued
     input (2 bytes an element) and its fp32 weight and writes its fp32
     result; its gradient reads the fp32 output gradient, the input and the
     weight and writes the weight's and the input's fp32 gradients."""
@@ -265,7 +302,10 @@ def train_step_costs(params: dict, rows: int) -> dict:
                 *dense_ops(rows, n_in, n_out, part)))
     n_in, n_out = params[names[-1]].shape
     w_bytes = n_in * n_out * 4
+    e_dim = params["embed"].shape[1]
     return {
+        "K8": (fold_bytes(k, e_dim, h1, "forward"),
+               fold_ops(k, e_dim, h1, "forward"), 0),
         "K3": (scorer_bytes(rows, h1, 8, rows * k, k * VOCAB * h1),
                scorer_ops(rows, k, h1), 0),
         "K7": dense,
@@ -277,6 +317,8 @@ def train_step_costs(params: dict, rows: int) -> dict:
                                 4 * rows * n_in * n_out, 0),
         "K4": (scorer_grad_bytes(rows, k, h1, 8, rows * k),
                scorer_ops(rows, k, h1), 0),
+        "K8's gradient": (fold_bytes(k, e_dim, h1, "backward"),
+                          fold_ops(k, e_dim, h1, "backward"), 0),
         "K5": (adam_bytes(n_params), adam_ops(n_params), 0),
     }
 
