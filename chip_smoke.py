@@ -124,12 +124,21 @@ failing the run with a non-zero exit:
    both directions bit-equal (the table, and the sinks, which start from
    random values), two launches bit-equal; at the 128x1 and 512x3 heads'
    folds each direction launched alone back to back and its wrapper in a
-   CUDA graph, beside its bound, its plain version, ``torch.matmul`` of
-   embed and w1 (the fold in fp32, no cast: ``library_ms``) and the torch
-   ops it replaces captured in a graph (the forward: the ``einsum`` and
-   its cast; both ways: the forward, K4's table gradient cast to bf16 and
-   autograd's cast back, the ``einsum``'s gradient and the AccumulateGrads
-   of embed, w1 and b1), K8 both ways in a graph beside them;
+   CUDA graph, beside its bound, the launch floor (an empty kernel that
+   only waits for the kernel before it, on the direction's grid with its
+   cluster and launch attributes: ``v2p_fold_launch_floor``, in a CUDA
+   graph), its plain version, ``torch.matmul`` of embed and w1 (the fold
+   in fp32, no cast: ``library_ms``) and the torch ops it replaces
+   captured in a graph (the forward: the ``einsum`` and its cast; both
+   ways: the forward, K4's table gradient cast to bf16 and autograd's cast
+   back, the ``einsum``'s gradient and the AccumulateGrads of embed, w1
+   and b1), K8 both ways in a graph beside them; the backward-then-forward
+   pair captured in a CUDA graph (each kernel a programmatic dependent of
+   the one before it) bit-equal to the same pair run eagerly; its first
+   design (``chip_archive/fold_first.cu``) and the current one, each built
+   into a library of its own, A B B A (``utils/kernel_ab.py``'s
+   ``ab_k8``): each direction launched alone (``earlier_ms``) and in a
+   CUDA graph (``earlier_graph_ms``), and the pair in a graph;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -362,6 +371,7 @@ K8_SHAPES = tuple((k, e, h) for k in (8, 9, 11) for e in (16, 32)
     (k, 32, h) for k in (692, 3121) for h in (100, 512))
 K8_MISALIGNED = (9, 32, 128)
 K8_TIMED = {"128x1": (9, 32, 128), "512x3": (9, 32, 512)}
+K8_EARLIER = os.path.join(ROOT, "chip_archive", "fold_first.cu")
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
 # device kernels a captured step took before K8, at commit 83e6430
@@ -2314,13 +2324,16 @@ def phase_k8(card):
     plain versions on the card over K8_SHAPES, and K8_MISALIGNED again in
     views 4 bytes past alignment: each direction launched twice, bit-equal
     to each other and to the plain version; then at the K8_TIMED folds
-    each direction timed (module docstring). Returns the numbers by head,
-    then by direction (``"forward"``, ``"backward"``)."""
+    each direction timed beside its launch floor, the captured
+    backward-then-forward pair held bit-equal to the eager one, and the
+    first design against the current one A B B A (module docstring).
+    Returns the numbers by head, then by direction (``"forward"``,
+    ``"backward"``)."""
     import torch
 
     from vcf2prot_tpu_torch.downstream import fold as fd
-    from vcf2prot_tpu_torch.runtime.build import load_kernels
-    from vcf2prot_tpu_torch.utils import roofline
+    from vcf2prot_tpu_torch.runtime.build import check_launch, load_kernels
+    from vcf2prot_tpu_torch.utils import kernel_ab, roofline
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(29)
@@ -2359,10 +2372,49 @@ def phase_k8(card):
           f"holding random values bit-equal to the plain versions, two "
           f"launches bit-equal")
 
+    # the first design against the current one, in one call (A B B A)
+    names = [K8_EARLIER, os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                                      "fold.cu")]
+    with tempfile.TemporaryDirectory(prefix="k8_ab_") as outdir:
+        fns = kernel_ab.build_all(names, kernel_ab.ENTRIES["k8"], outdir)
+        bad, ab = kernel_ab.ab_k8(names, fns)
+    check(bad == 0, "K8: a version of the A/B differs from the plain "
+                    "versions")
+    check(tuple(ab) == tuple(K8_TIMED), f"K8: the A/B timed {tuple(ab)}")
+
+    def ab_ms(head, path, key):
+        return statistics.median(ab[head][path][key])
+
     lib = load_kernels()
     timed = {}
     for head, (k, e_dim, h_dim) in K8_TIMED.items():
         embed, w1, rows, sinks = _k8_inputs(k, e_dim, h_dim, gen)
+        # the pair a step runs, captured (each kernel a programmatic
+        # dependent of the one before it) against the same pair eagerly
+        eager = [s.clone() for s in sinks]
+        fd.fold_backward(rows, embed, w1, *eager)
+        eager_table = fd.fold_forward(embed, w1)
+        captured = [s.clone() for s in sinks]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fd.fold_backward(rows, embed, w1, *captured)
+            graph_table = fd.fold_forward(embed, w1)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(graph_table, eager_table) and all(
+            torch.equal(a, b) for a, b in zip(captured, eager)),
+            f"K8 {head}: the captured backward-then-forward pair differs "
+            f"from the eager one")
+        del graph, graph_table, captured, eager, eager_table
+        print(f"K8 {head}: the backward-then-forward pair captured in a "
+              f"CUDA graph, each launch a programmatic dependent of the one "
+              f"before it, bit-equal to the same pair run eagerly")
+        floor = {part: _graph_ms(
+            lambda b=int(part == "backward"): check_launch(
+                lib.v2p_fold_launch_floor(
+                    k, e_dim, h_dim, b,
+                    torch.cuda.current_stream().cuda_stream),
+                "fold launch floor")) for part in roofline.FOLD_PARTS}
         table = torch.empty((k * 21, h_dim), dtype=torch.bfloat16,
                             device=DEV)
         alone = {
@@ -2425,11 +2477,14 @@ def phase_k8(card):
             plain, _ = _cuda_ms(plains[part])
             graph = _graph_ms(wrappers[part])
             bound, by = roofline.fold_bound_ms(k, e_dim, h_dim, part)
+            key = "fwd" if part == "forward" else "bwd"
             numbers[part] = dict(
                 max_abs_err=0.0, ms=alone[part], graph_ms=graph,
                 plain_ms=plain, bound_ms=bound, bound_by=by,
-                wrapper_ms=wrapper,
+                wrapper_ms=wrapper, floor_ms=floor[part],
                 library_ms=library if part == "forward" else None,
+                earlier_ms=ab_ms(head, names[0], f"{key}_ms"),
+                earlier_graph_ms=ab_ms(head, names[0], f"{key}_graph_ms"),
                 replaced_graph_ms=(replaced_fwd if part == "forward"
                                    else replaced_pair),
                 pair_graph_ms=pair_graph)
@@ -2437,13 +2492,23 @@ def phase_k8(card):
                   f"{h_dim}) on {card}: launched alone back to back "
                   f"{alone[part]:.4f} ms, in a CUDA graph {graph:.4f} ms "
                   f"({100 * bound / graph:.1f}% of the {bound:.6f} ms bound "
-                  f"by {by}), wrapper {wrapper:.4f} ms, plain {plain:.4f} ms"
+                  f"by {by}; the launch floor on its grid "
+                  f"{floor[part]:.4f} ms in a CUDA graph), wrapper "
+                  f"{wrapper:.4f} ms, plain {plain:.4f} ms; the first "
+                  f"design in the A/B {numbers[part]['earlier_ms']:.4f} ms "
+                  f"alone, {numbers[part]['earlier_graph_ms']:.4f} in a "
+                  f"graph (this design "
+                  f"{ab_ms(head, names[1], key + '_ms'):.4f} / "
+                  f"{ab_ms(head, names[1], key + '_graph_ms'):.4f})"
                   + (f"; torch.matmul of embed and w1 (fp32, no cast) "
                      f"{library:.4f} ms; the einsum and cast it replaces "
                      f"{replaced_fwd:.4f} ms in a CUDA graph"
                      if part == "forward" else ""))
         print(f"K8 both ways, the {head} head's fold, on {card}: in a CUDA "
-              f"graph {pair_graph:.4f} ms; the torch ops they replace (the "
+              f"graph {pair_graph:.4f} ms (the A/B's pair: first design "
+              f"{ab_ms(head, names[0], 'pair_graph_ms'):.4f}, this one "
+              f"{ab_ms(head, names[1], 'pair_graph_ms'):.4f}); the torch ops "
+              f"they replace (the "
               f"einsum and its cast, the table gradient's casts, the "
               f"einsum's gradient, the AccumulateGrads of embed, w1 and b1) "
               f"{replaced_pair:.4f} ms in a CUDA graph")
@@ -3431,7 +3496,8 @@ def main():
             "wide_plain_ms", "wide_wrapper_ms", "wide_replaced_ms",
             "wide_replaced_graph_ms", "wide_pair_graph_ms", "block_ms",
             "block_graph_ms", "block_plain_ms", "block_bound_ms",
-            "block_library_ms", "block_earlier_ms", "block_earlier_graph_ms")
+            "block_library_ms", "block_earlier_ms", "block_earlier_graph_ms",
+            "floor_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -170,14 +170,54 @@ def test_forward_sums_in_the_kernels_order(k, e_dim, h_dim):
     assert not np.array_equal(back, want)
 
 
+def np_fold_halving(x):
+    """x folded by halving over its last axis (a power of 2 long), in
+    fp32: x[..., i] + x[..., i + n/2], again."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = (x[..., :half] + x[..., half:]).astype(np.float32)
+    return x[..., 0]
+
+
+def np_embed_sums(g, w, cluster, stride):
+    """embed's gradient of g [k, 21, H] and w [k, E, H] in K8's order,
+    term by term: the k*H terms j = i*H + h cut into ``cluster`` slices of
+    per = stride * ceil(n / (cluster * stride)); lane l of block r adds
+    j = r*per + l, r*per + l + stride, ... (j < n) from +0.0; then each
+    warp's 32 lanes, the block's stride / 32 warps and the cluster's
+    blocks folded by halving."""
+    k, e_dim, h_dim = w.shape
+    n = k * h_dim
+    per = stride * -(-n // (cluster * stride))
+    gj = g.transpose(1, 0, 2).reshape(VOCAB, n)
+    wj = w.transpose(1, 0, 2).reshape(e_dim, n)
+    part = np.zeros((VOCAB, e_dim, cluster, stride), np.float32)
+    for r in range(cluster):
+        for t in range(stride):
+            for j in range(r * per + t, min(n, (r + 1) * per), stride):
+                part[:, :, r, t] = (part[:, :, r, t]
+                                    + np.outer(gj[:, j], wj[:, j]))
+    warps = np_fold_halving(part.reshape(VOCAB, e_dim, cluster,
+                                         stride // 32, 32))
+    return np_fold_halving(np_fold_halving(warps))
+
+
+# k x E x H: k*H below one slice (3 x 7: idle lanes, idle cluster blocks),
+# a multiple of a warp (9 x 128), neither (3 x 100, 4 x 70, 11 x 8), one
+# term past a slice (5 x 13: slices of 64, block 1 takes one term), one
+# term past a round of the whole cluster (5 x 205: slices of 128, block 8
+# takes one term); E 2, 3, 5 and 9 not multiples of a block's 4 columns
+# of embed
 @pytest.mark.parametrize("k,e_dim,h_dim", [(3, 2, 100), (11, 3, 8),
-                                           (9, 2, 128), (4, 9, 70)])
+                                           (9, 2, 128), (4, 9, 70),
+                                           (5, 5, 13), (5, 2, 205),
+                                           (3, 2, 7)])
 def test_backward_sums_in_the_kernels_order(k, e_dim, h_dim):
-    """embed's gradient: terms j = i*H + h, thread t adding j = t, t + 128,
-    ... from +0.0; each warp's 32 lanes folded by halving, then the 4
-    warps; w1's: v ascending from +0.0; both added into the sinks, and b1's
-    row too. g is the table's gradient rounded to bf16. k*H below 128 (11 x
-    8: idle threads), a multiple of it (9 x 128) and neither."""
+    """embed's gradient: the terms cut into fold.CLUSTER slices of
+    fold.slice_terms, lane l of block r adding its strided terms from
+    +0.0, then the lanes and the cluster's blocks folded by halving; w1's:
+    v ascending from +0.0; both added into the sinks, and b1's row too. g
+    is the table's gradient rounded to bf16."""
     rng = np.random.default_rng(k * h_dim)
     embed, w1 = spread(rng, (VOCAB, e_dim)), spread(rng, (k * e_dim, h_dim))
     grad = spread(rng, (k * VOCAB + 1, h_dim))
@@ -186,19 +226,8 @@ def test_backward_sums_in_the_kernels_order(k, e_dim, h_dim):
     g = bf16_np(grad[:-1]).reshape(k, VOCAB, h_dim)
     w = w1.reshape(k, e_dim, h_dim)
     n = k * h_dim
-    want_embed = sinks[0].copy()
-    for v in range(VOCAB):
-        for e in range(e_dim):
-            threads = []
-            for t in range(fd.THREADS):
-                acc = f32(0.0)
-                for j in range(t, n, fd.THREADS):
-                    acc = f32(acc + f32(g[j // h_dim, v, j % h_dim]
-                                        * w[j // h_dim, e, j % h_dim]))
-                threads.append(acc)
-            warps = [np_halving(threads[x:x + 32])
-                     for x in range(0, fd.THREADS, 32)]
-            want_embed[v, e] = f32(want_embed[v, e] + np_halving(warps))
+    sums = np_embed_sums(g, w, fd.CLUSTER, fd.STRIDE)
+    want_embed = (sinks[0] + sums).astype(np.float32)
     want_w1 = sinks[1].copy()
     for i in range(k):
         for e in range(e_dim):
@@ -215,7 +244,9 @@ def test_backward_sums_in_the_kernels_order(k, e_dim, h_dim):
     for a, b in zip(got, (want_embed, want_w1, want_b1)):
         assert a.numpy().tobytes() == b.tobytes()
     # the data tell the orders apart: one sequential sum over j rounds
-    # elsewhere
+    # elsewhere, and past 128 terms so does the first design's (one block
+    # of 128 strided sums, fold.embed_sums(cluster=1, stride=128); up to
+    # 128 terms the two trees add the same sums in the same order)
     seq = sinks[0].copy()
     for v in range(VOCAB):
         for e in range(e_dim):
@@ -225,6 +256,65 @@ def test_backward_sums_in_the_kernels_order(k, e_dim, h_dim):
                                     * w[j // h_dim, e, j % h_dim]))
             seq[v, e] = f32(seq[v, e] + acc)
     assert not np.array_equal(seq, want_embed)
+    first = np_embed_sums(g, w, 1, 128)
+    assert np.array_equal(
+        fd.embed_sums(torch.from_numpy(g), torch.from_numpy(w), cluster=1,
+                      stride=128).numpy(), first)
+    if n > 128:
+        assert not np.array_equal(first, sums)
+
+
+@pytest.mark.parametrize("n,cluster,stride,per", [
+    (1, 16, 64, 64), (64, 16, 64, 64), (65, 16, 64, 64), (1024, 16, 64, 64),
+    (1025, 16, 64, 128), (1152, 16, 64, 128), (4608, 16, 64, 320),
+    (4608, 1, 128, 4608), (33, 16, 32, 32), (3121 * 512, 16, 64, 99904)])
+def test_slices_of_embeds_gradient(n, cluster, stride, per):
+    """A slice is stride * ceil(n / (cluster * stride)) terms: 128 at a
+    128x1 head's fold (k 9, H 128: 2 terms a lane, blocks 9-15 idle), 320
+    at a 512x3 head's (5 terms a lane, block 15 idle); one block of 128
+    strided sums is the first design's cut."""
+    assert fd.slice_terms(n, cluster, stride) == per
+    assert per % stride == 0 and cluster * per >= n
+    assert (fd.CLUSTER, fd.STRIDE) == (16, 64)
+
+
+def test_the_order_constants_are_the_kernels():
+    """fold.CLUSTER and fold.STRIDE, which the plain versions' order
+    follows, are csrc/fold.cu's kCluster and kStride."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fd.__file__).parent.parent / "csrc" / "fold.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kCluster"]) == fd.CLUSTER
+    assert int(consts["kStride"]) == fd.STRIDE
+
+
+def test_the_ab_holds_each_design_to_its_order():
+    """utils/kernel_ab.py k8 builds the first design
+    (chip_archive/fold_first.cu) and the current one with the same C
+    entry points, and holds each one's embed gradient to embed_sums in the
+    order its source names: fold.CLUSTER and fold.STRIDE for
+    csrc/fold.cu, one block of 128 strided sums for the first design."""
+    from pathlib import Path
+
+    from vcf2prot_tpu_torch.runtime.build import SIGNATURES
+    from vcf2prot_tpu_torch.utils import kernel_ab
+
+    root = Path(fd.__file__).parent.parent.parent
+    current = root / "vcf2prot_tpu_torch" / "csrc" / "fold.cu"
+    first = root / "chip_archive" / "fold_first.cu"
+    assert kernel_ab.k8_order(str(current)) == (fd.CLUSTER, fd.STRIDE)
+    assert kernel_ab.k8_order(str(first)) == (1, 128)
+    assert kernel_ab.ENTRIES["k8"] == ("v2p_fold_forward",
+                                       "v2p_fold_backward")
+    for src in (current, first):
+        text = src.read_text()
+        for name in kernel_ab.ENTRIES["k8"]:
+            assert f'extern "C" int {name}(' in text and name in SIGNATURES
+    assert 'extern "C" int v2p_fold_launch_floor(' in current.read_text()
+    assert "v2p_fold_launch_floor" in SIGNATURES
+    assert kernel_ab.main(["k8"]) == 2
 
 
 def folded_case(shape, rows=300, seed=3):

@@ -13,11 +13,17 @@ in one launch.
 
 Every product and add is one fp32 rounding, each sum from +0.0, in the
 kernel's order: the forward sums ``e`` ascending, ``w1``'s gradient ``v``
-ascending, and ``embed``'s gradient cuts its ``k*H`` terms over
-:data:`THREADS` threads (thread ``t`` adds terms ``t, t + THREADS, ...``),
-then folds each warp's lanes and the block's warps by halving. The plain
+ascending, and ``embed``'s gradient cuts its ``n = k*H`` terms into
+:data:`CLUSTER` slices of :func:`slice_terms` terms, a slice a block of
+K8's cluster, each strided over :data:`STRIDE` lanes (two warps; lane
+``l`` of block ``r`` adds terms ``r*per + l, r*per + l + STRIDE, ...``),
+then folds each warp's lanes, the block's warps and the cluster's blocks
+by halving. The plain
 versions here repeat that arithmetic one torch op at a time, so on the
 card the kernel is bit-equal to them; on the CPU the wrappers run them.
+On the card both kernels are programmatic dependents of the kernel
+launched before them on the stream (its launch overlaps that kernel's
+drain; they wait for it before any memory access).
 """
 from __future__ import annotations
 
@@ -28,9 +34,11 @@ from ..runtime.build import launch, load_kernels
 from .head_tail import LANES, halving_fold
 from .peptides import VOCAB
 
-# the threads of a K8 block, as csrc/fold.cu fixes them: embed's gradient
-# cuts its terms over them
-THREADS = 128
+# embed's gradient's order, as csrc/fold.cu fixes it: the blocks of the
+# cluster its terms are cut over (kCluster) and the lanes each block's
+# slice is strided over (kStride: two warps on a column of embed)
+CLUSTER = 16
+STRIDE = 64
 
 
 def _shape(embed, w1) -> tuple:
@@ -67,25 +75,41 @@ def fold_forward_reference(embed, w1) -> torch.Tensor:
     return acc.view(k * VOCAB, h_dim).to(torch.bfloat16)
 
 
-def embed_sums(g, w) -> torch.Tensor:
+def slice_terms(n: int, cluster: int = CLUSTER, stride: int = STRIDE) -> int:
+    """The terms of a slice of ``embed``'s gradient, ``n`` terms cut over
+    ``cluster`` blocks: ``stride * ceil(n / (cluster * stride))``, each of
+    a block's ``stride`` lanes adding the same number of them (the last
+    slices may be short or empty)."""
+    return stride * -(-n // (cluster * stride))
+
+
+def embed_sums(g, w, cluster: int = CLUSTER,
+               stride: int = STRIDE) -> torch.Tensor:
     """``sum_{i, h} g[i, v, h] * w[i, e, h]`` (fp32 ``[21, E]``) of ``g``
     ``[k, 21, H]`` and ``w`` ``[k, E, H]`` in K8's order: the terms ``j =
-    i*H + h`` cut over THREADS threads, thread ``t`` adding ``t, t +
-    THREADS, ...`` from +0.0 (zero terms past the last), then each warp's
-    lanes and the warps folded by halving."""
+    i*H + h`` cut into ``cluster`` slices of :func:`slice_terms` ``per``
+    terms, lane ``l`` of block ``r`` adding ``j = r*per + l, r*per + l +
+    stride, ...`` (``j < k*H``) from +0.0; then each warp's 32 lanes, a
+    block's ``stride / 32`` warps and the cluster's blocks folded by
+    halving, idle lanes and blocks at +0.0 (products of zeros past the
+    last term add +0.0 to a sum that is never -0.0: no bit changes).
+    ``cluster=1, stride=128`` is the first design's order
+    (``chip_archive/fold_first.cu``)."""
     k, e_dim, h_dim = w.shape
     n = k * h_dim
-    rounds = -(-n // THREADS)
-    pad = (0, rounds * THREADS - n)
-    gv = F.pad(g.permute(1, 0, 2).reshape(VOCAB, n), pad)
-    we = F.pad(w.permute(1, 0, 2).reshape(e_dim, n), pad)
-    acc = torch.zeros((VOCAB, e_dim, THREADS), dtype=torch.float32,
+    per = slice_terms(n, cluster, stride)
+    rounds = per // stride
+    pad = (0, cluster * per - n)
+    gv = F.pad(g.permute(1, 0, 2).reshape(VOCAB, n), pad).view(
+        VOCAB, cluster, rounds, stride)
+    we = F.pad(w.permute(1, 0, 2).reshape(e_dim, n), pad).view(
+        e_dim, cluster, rounds, stride)
+    acc = torch.zeros((VOCAB, e_dim, cluster, stride), dtype=torch.float32,
                       device=g.device)
     for r in range(rounds):
-        cut = slice(r * THREADS, (r + 1) * THREADS)
-        acc = acc + gv[:, None, cut] * we[None, :, cut]
-    acc = acc.view(VOCAB, e_dim, THREADS // LANES, LANES)
-    return halving_fold(halving_fold(acc, 3), 2)
+        acc = acc + gv[:, None, :, r] * we[None, :, :, r]
+    acc = acc.view(VOCAB, e_dim, cluster, stride // LANES, LANES)
+    return halving_fold(halving_fold(halving_fold(acc, 4), 3), 2)
 
 
 def fold_backward_reference(grad, embed, w1, d_embed, d_w1, d_b1) -> None:

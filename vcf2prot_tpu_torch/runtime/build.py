@@ -69,6 +69,7 @@ SIGNATURES = {
                                   _P, _P, _P, _P, _P),
     "v2p_fold_forward": (_P, _P, _I64, _I64, _I64, _P, _P),
     "v2p_fold_backward": (_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P),
+    "v2p_fold_launch_floor": (_I64, _I64, _I64, _I, _P),
 }
 
 _LIB = None

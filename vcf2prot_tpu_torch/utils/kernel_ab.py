@@ -1,11 +1,12 @@
 """Compare versions of K1 (the executor), K2 (the validator), K5 (adam),
-K6 (the head's tail) or K7 (the hidden layers) on one card.
+K6 (the head's tail), K7 (the hidden layers) or K8 (the fold) on one card.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k5 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k6 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k7 OLD.cu NEW.cu [...]
+    python3 -m vcf2prot_tpu_torch.utils.kernel_ab k8 OLD.cu NEW.cu [...]
 
 Each source holds the kernel's C entry point (``v2p_segmented_copy_i32``,
 the ABI of ``csrc/executor.cu``, or ``v2p_validate_i32``, that of
@@ -52,6 +53,18 @@ on seeded random layers, checked against the plain versions within
 ``dense.bf16_within`` (db bit-equal, the weight gradient's slices those of
 ``dense.weight_slices``), then timed A, B, ..., B, A, each kernel launched
 alone and in a CUDA graph.
+K8's sources hold ``v2p_fold_forward`` and ``v2p_fold_backward`` (the ABI
+of ``csrc/fold.cu``; its first design is kept as
+``chip_archive/fold_first.cu``). No cohort: each version runs the 128x1
+and 512x3 heads' folds (K8_FOLDS) on seeded random inputs and sinks
+holding random values, held bit for bit to ``downstream/fold.py``'s plain
+versions: the table, w1's and b1's gradients in the one order every
+design keeps, embed's gradient in the order of ``fold.embed_sums`` with
+the cluster and stride the source names (``constexpr int kCluster``,
+``kStride``; 1 and ``kThreads`` where it names none, as the first
+design). Each is then timed A, B, ..., B, A,
+each direction launched alone and in a CUDA graph, and the
+backward-then-forward pair a training step runs in a CUDA graph.
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
 """
@@ -75,7 +88,8 @@ ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32",
            "k5": "v2p_adam",
            "k6": ("v2p_head_tail_fwd", "v2p_head_tail_bwd"),
            "k7": ("v2p_dense_forward", "v2p_dense_backward_input",
-                  "v2p_dense_backward_weight")}
+                  "v2p_dense_backward_weight"),
+           "k8": ("v2p_fold_forward", "v2p_fold_backward")}
 CHUNKS = (256 << 20, 128 << 20)
 # K5's heads (hidden width, depth) and its checked steps a version
 K5_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
@@ -86,6 +100,8 @@ K6_ROWS, K6_PAD = 4096, 37
 # K7's layers (rows, inputs, outputs): a training batch of the 512x3 head's
 # hidden layers (timed each way) and a serving block (its forward)
 K7_LAYERS = ((4096, 512, 512), (131072, 512, 512))
+# K8's folds (k, E, H): the 128x1 and 512x3 heads' (chip_smoke.K8_TIMED)
+K8_FOLDS = {"128x1": (9, 32, 128), "512x3": (9, 32, 512)}
 # a version that sums in another order than the plain version, against
 # float64: s and the loss within 1e-5 (relative to the largest |s|, and to
 # the loss), b2's gradient within 1e-4, dh and w2's gradient within one
@@ -611,15 +627,123 @@ def ab_k7(paths, fns):
     return bad, out
 
 
+def k8_order(path: str) -> tuple:
+    """``(cluster, stride)`` of ``fold.embed_sums`` that repeat the order of
+    the K8 source at ``path``: its ``constexpr int kCluster`` and
+    ``kStride``, or 1 and its ``kThreads`` where it names none (the first
+    design: one block of strided sums)."""
+    import re
+
+    with open(path) as fh:
+        consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                                 fh.read()))
+    if "kCluster" in consts:
+        return int(consts["kCluster"]), int(consts["kStride"])
+    return 1, int(consts["kThreads"])
+
+
+def ab_k8(paths, fns):
+    """K8's versions (``fns``, their ``(v2p_fold_forward,
+    v2p_fold_backward)``) at K8_FOLDS: each checked bit for bit against
+    the plain versions (embed's gradient in its source's order,
+    :func:`k8_order`), then timed A, B, ..., B, A: each direction
+    launched alone and in a CUDA graph, and the backward-then-forward pair
+    in a CUDA graph. Prints a line a fold; returns ``(versions that
+    disagreed, {head: {path: {"fwd_ms", ...: [...]}}})``."""
+    from ..downstream import fold as fd
+
+    order = list(range(len(paths)))
+    order += order[::-1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(47)
+    bad, out = 0, {}
+    for head, (k, e_dim, h_dim) in K8_FOLDS.items():
+        embed = torch.randn(21, e_dim, generator=gen, device="cuda") * 0.1
+        w1 = (torch.randn(k * e_dim, h_dim, generator=gen, device="cuda")
+              * (2.0 / (k * e_dim)) ** 0.5)
+        rows = torch.randn(k * 21 + 1, h_dim, generator=gen,
+                           device="cuda") * 1e-2
+        sinks = [torch.randn(*shape, generator=gen, device="cuda") * 1e-3
+                 for shape in ((21, e_dim), (k * e_dim, h_dim), (h_dim,))]
+        table = torch.empty((k * 21, h_dim), dtype=torch.bfloat16,
+                            device="cuda")
+        want_table = fd.fold_forward_reference(embed, w1)
+        want = [s.clone() for s in sinks]
+        fd.fold_backward_reference(rows, embed, w1, *want)
+        g = rows[:-1].to(torch.bfloat16).float().view(k, 21, h_dim)
+        keys = ("fwd_ms", "fwd_graph_ms", "bwd_ms", "bwd_graph_ms",
+                "pair_graph_ms")
+        times = {i: {key: [] for key in keys} for i in order}
+        for i in order:
+            fwd, bwd = fns[i]
+            work = [s.clone() for s in sinks]
+
+            def forward(f=fwd):
+                return f(embed.data_ptr(), w1.data_ptr(), k, e_dim, h_dim,
+                         table.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+
+            def backward(f=bwd, t=work):
+                return f(rows.data_ptr(), embed.data_ptr(), w1.data_ptr(), k,
+                         e_dim, h_dim, *(s.data_ptr() for s in t),
+                         torch.cuda.current_stream().cuda_stream)
+
+            def pair(forward=forward, backward=backward):
+                return backward() or forward()
+
+            for what, rc in (("forward", forward()),
+                             ("backward", backward())):
+                if rc:
+                    raise RuntimeError(f"{paths[i]}: the {what} launch "
+                                       f"failed, cudaError_t {rc}")
+            torch.cuda.synchronize()
+            cluster, stride = k8_order(paths[i])
+            d_embed = sinks[0] + fd.embed_sums(g, w1.view(k, e_dim, h_dim),
+                                               cluster, stride)
+            ok = (torch.equal(table, want_table)
+                  and torch.equal(work[0], d_embed)
+                  and all(torch.equal(a, b) for a, b in zip(work[1:],
+                                                            want[1:])))
+            if not ok:
+                bad += 1
+            print(f"{paths[i]} K8 {head} (k {k}, E {e_dim}, H {h_dim}): "
+                  f"{'bit-equal to' if ok else 'DIFFERS from'} the plain "
+                  f"versions (embed's gradient at cluster {cluster}, "
+                  f"stride {stride})")
+            times[i]["fwd_ms"].append(median_ms(forward))
+            times[i]["fwd_graph_ms"].append(graph_ms(forward))
+            times[i]["bwd_ms"].append(median_ms(backward))
+            times[i]["bwd_graph_ms"].append(graph_ms(backward))
+            times[i]["pair_graph_ms"].append(graph_ms(pair))
+        out[head] = {paths[i]: times[i] for i in range(len(paths))}
+        bounds = {part: roofline.fold_bound_ms(k, e_dim, h_dim, part)[0]
+                  for part in roofline.FOLD_PARTS}
+        print(f"K8 {head} fold (launched alone / in a CUDA graph, ms, A B B "
+              f"A; bounds " + ", ".join(f"{p} {v:.6f}" for p, v in
+                                        bounds.items()) + " by bytes): "
+              + "; ".join(
+                  f"{paths[i]} " + " | ".join(
+                      f"forward {times[i]['fwd_ms'][j]:.4f} / "
+                      f"{times[i]['fwd_graph_ms'][j]:.4f}, backward "
+                      f"{times[i]['bwd_ms'][j]:.4f} / "
+                      f"{times[i]['bwd_graph_ms'][j]:.4f}, backward then "
+                      f"forward {times[i]['pair_graph_ms'][j]:.4f} in a graph"
+                      for j in range(len(times[i]["fwd_ms"])))
+                  for i in range(len(paths))))
+        del embed, w1, rows, sinks, table, want
+        torch.cuda.empty_cache()
+    return bad, out
+
+
 def main(argv) -> int:
-    no_cohort = argv[:1] in (["k5"], ["k6"], ["k7"])
+    no_cohort = argv[:1] in (["k5"], ["k6"], ["k7"], ["k8"])
     if (not torch.cuda.is_available() or len(argv) < (2 if no_cohort else 4)
             or argv[0] not in ENTRIES):
         print(__doc__, file=sys.stderr)
         return 2
     print(card())
     if no_cohort:
-        run = {"k5": ab_k5, "k6": ab_k6, "k7": ab_k7}[argv[0]]
+        run = {"k5": ab_k5, "k6": ab_k6, "k7": ab_k7, "k8": ab_k8}[argv[0]]
         with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
             fns = build_all(argv[1:], ENTRIES[argv[0]], outdir)
             return 1 if run(argv[1:], fns)[0] else 0
