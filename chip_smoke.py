@@ -12,7 +12,8 @@ failing the run with a non-zero exit:
    nvcc / Triton;
 2. build: K1 (executor), K2 (validator), K3 (window scorer), K4 (its
    gradient), K5 (adam), K6 (the head's tail), K7 (the hidden layers
-   after the first) and K8 (the fold and its gradient) through
+   after the first), K8 (the fold and its gradient) and K9 (the training
+   step's prologue) through
    ``runtime/build.py``, one nvcc per source, all started together;
 3. kernel vs plain twin on the card: K1 byte-equal on a cohort pack and
    the executor and output-tile edge packs of ``tests/k1_edges.py``, int32
@@ -139,6 +140,17 @@ failing the run with a non-zero exit:
    into a library of its own, A B B A (``utils/kernel_ab.py``'s
    ``ab_k8``): each direction launched alone (``earlier_ms``) and in a
    CUDA graph (``earlier_graph_ms``), and the pair in a graph;
+8f. K9 (the training step's prologue: the batch copied out of the epoch
+   buffers at the device's step count, the gradient buffer zeroed, the
+   hidden weights cast to bf16) against its plain version on the card over
+   ``K9_CASES`` (the 128x1 and 512x3 fits' steps, the dp fit's shards with
+   the batches' mask counts, odd shapes, views 1-3 elements past alignment)
+   at ``K9_STEPS``: bit-equal, nothing written outside its outputs; K5 with
+   its step tail (the loss stored at ``steps % L``, the count advanced) and
+   without, bit-equal in p, mu, nu and the count, its block ticket 0 after
+   every launch, the tail as its plain version's; at the 128x1 and 512x3
+   steps K9 launched alone, in a CUDA graph, its wrapper, its plain version
+   and the torch ops it replaced in a graph, beside its bound;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -147,8 +159,8 @@ failing the run with a non-zero exit:
    its captured graph, every epoch loop under
    ``torch.cuda.set_sync_debug_mode("error")``): holdout AUC within
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
-   synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched once
-   a step (replays counted), K6 and K8 once forward and once backward a
+   synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4, K5 and K9 launched
+   once a step (replays counted), K6 and K8 once forward and once backward a
    step on every head, K7's three kernels once a step for each of the
    512x3 head's two hidden layers after the first; fit walls;
 9b. step times: each head's captured step against its eager one
@@ -159,9 +171,11 @@ failing the run with a non-zero exit:
    none of its edge path's in the 512x3 loop and no K7 kernel in the
    128x1 one; the device kernels a step by name beside the parent's
    count (``PARENT_STEP_KERNELS``), fewer now, with no cuBLAS product
-   (``gemm``/``bmm``) among them, and in the eager loop no ``aten::bmm``
-   or ``aten::einsum``, no torch op run by an AccumulateGrad and no cast
-   (``aten::_to_copy``) but the hidden weights' bf16 casts; then phase 9's fits captured and
+   (``gemm``/``bmm``) among them, every kernel run once a step one of the
+   port's own (``csrc/*.cu``) and none of the torch kernels K9 and K5's
+   tail replaced (``REPLACED_BY_K9``), and in the eager loop no
+   ``aten::bmm`` or ``aten::einsum``, no torch op run by an AccumulateGrad
+   and no cast (``aten::_to_copy``); then phase 9's fits captured and
    eager, A B B A, with bit-equal weights;
 10. the trained 512x3 head saved with ``save_params`` and served by
    ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
@@ -221,7 +235,7 @@ must have run nowhere on a path: the head's layers always take the Hopper
 one (``tests/test_torch_dense.py`` holds each wrapper's count to the
 pointers and extents its C entry picks the path from; phases 8d and 9b
 also read the kernels' names from the profiler).
-The line before the last is the kernels' JSON summary, K1-K8 (launches
+The line before the last is the kernels' JSON summary, K1-K9 (launches
 summed over the paths, a captured step's counted at each replay; ``ms``
 each kernel's launches alone and ``wrapper_ms`` its wrapper's, back to
 back; each kernel's bound from
@@ -234,8 +248,10 @@ designs' ``earlier_ms`` / ``earlier_graph_ms``, K6 beside
 tail's numbers as ``wide_*``, K7's forward on a serving block as
 ``block_*``, K7 beside its first design's ``earlier_ms`` /
 ``earlier_graph_ms`` too, K8 in a graph beside the torch ops it replaces,
-``replaced_graph_ms``, and both ways as ``pair_graph_ms``, null where they
-do not apply); the last line is
+``replaced_graph_ms``, and both ways as ``pair_graph_ms``, K9 at the
+128x1 step beside the torch ops it replaced in a graph
+(``replaced_graph_ms``) and at the 512x3 step as ``wide_*``, null where
+they do not apply); the last line is
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX package
 ``vcf2prot_tpu``.
 """
@@ -372,11 +388,38 @@ K8_SHAPES = tuple((k, e, h) for k in (8, 9, 11) for e in (16, 32)
 K8_MISALIGNED = (9, 32, 128)
 K8_TIMED = {"128x1": (9, 32, 128), "512x3": (9, 32, 512)}
 K8_EARLIER = os.path.join(ROOT, "chip_archive", "fold_first.cu")
+# K9's cases (phase 8f), (hidden, depth), rows, epoch batches, whether the
+# dp fit's fourth epoch buffer (the batches' mask counts) is copied too,
+# and the elements (bytes for the windows) past 16-byte alignment of the
+# parameters, the bf16 casts and the epoch and batch buffers: the fit's
+# 128x1 and 512x3 steps, the dp fit's shards (MESH_SHARDS of a batch),
+# then odd shapes and views past alignment (casts whose source and
+# destination lie at one place in a group of 4 elements, and at two)
+K9_CASES = (((128, 1), 4096, 20, False, (0, 0, 0)),
+            ((512, 3), 4096, 20, False, (0, 0, 0)),
+            ((128, 1), 2048, 20, True, (0, 0, 0)),
+            ((512, 3), 2048, 20, True, (0, 0, 0)),
+            ((512, 3), 4095, 7, True, (1, 1, 1)),
+            ((512, 3), 4096, 5, False, (3, 1, 2)),
+            ((24, 3), 100, 4, True, (1, 2, 3)))
+# the step counts each K9 case runs at: the first batches, the last of
+# 20, a wrap, and one past 2**32
+K9_STEPS = (0, 1, 19, 22, 2 ** 40 + 3)
+# K5's tail (phase 8f): its losses buffer and the counts it starts from
+K5_TAIL_LOSSES = 7
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
-# device kernels a captured step took before K8, at commit 83e6430
+# device kernels a captured step took before K9, at commit ae9e290
 # (PERF.md, section 5; an NVIDIA H100 80GB HBM3 at 700 W)
-PARENT_STEP_KERNELS = {"128x1": 32.62, "512x3": 41.62}
+PARENT_STEP_KERNELS = {"128x1": 17.57, "512x3": 27.57}
+# the torch kernels the step ran before K9 and K5's tail (the batch's
+# index_selects, the zero fill and the loss's seed, the loss's store, the
+# count's remainders and advance, the hidden weights' casts), as the
+# profiler names them
+REPLACED_BY_K9 = re.compile(
+    r"indexSelectSmallIndex|FillFunctor|index_copy_kernel_impl|"
+    r"BUnaryFunctor<long|CUDAFunctorOnSelf_add<long|"
+    r"bfloat16_copy_kernel_cuda")
 # seconds a multi-host child may take (phase 16)
 MULTIHOST_TIMEOUT = 300
 # seconds a default-engine child may take (phases 17-19)
@@ -2517,6 +2560,225 @@ def phase_k8(card):
     return timed
 
 
+def _k9_outputs(hidden, depth, rows, n_batches, dp, offs, gen):
+    """Phase 8f's arguments of a K9 case (K9_CASES) on the card, each a
+    view ``offs`` elements (bytes for u8) into a buffer of random values
+    with 16 elements on either side: ``(params, epoch, batch, grad, casts,
+    guards)``, the parameters in a buffer ``offs[0]`` in (the hidden
+    weights' views of it, the gradient buffer), the casts' bf16 buffers
+    ``offs[1]`` in, the epoch and batch buffers ``offs[2]`` in; ``guards``
+    the buffers with their elements outside the views, to hold unchanged."""
+    import numpy as np
+    import torch
+
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        TrainableHead,
+        init_params,
+    )
+
+    guards = []
+
+    def at(n, dtype, off, shape):
+        base = (torch.randint(0, 256, (n + 32,), dtype=torch.uint8,
+                              generator=gen, device=DEV)
+                if dtype == torch.uint8 else
+                torch.randn(n + 32, generator=gen, device=DEV).to(dtype))
+        lo = 16 - off
+        guards.append((base, lo, lo + n, torch.cat([base[:lo],
+                                                   base[lo + n:]])))
+        return base[lo:lo + n].view(shape)
+
+    params = init_params(NEO_K, seed=3, hidden=hidden, depth=depth)
+    head = TrainableHead.from_params(params)
+    n = head.flat.numel()
+    flat = at(n, torch.float32, offs[0], (n,))
+    flat.copy_(head.flat.to(DEV))
+    grad = at(n, torch.float32, offs[0], (n,))
+    casts, off = [], 0
+    for name, p in head.named_parameters():
+        if name in head.names[1:-1]:
+            w = flat[off:off + p.numel()].view(p.shape)
+            casts.append((w, at(p.numel(), torch.bfloat16, offs[1],
+                                p.shape)))
+        off += p.numel()
+    shapes = [(torch.uint8, (rows, NEO_K)), (torch.float32, (rows,)),
+              (torch.float32, (rows,))] + ([(torch.float32, ())] if dp
+                                           else [])
+    epoch, batch = [], []
+    for dtype, shape in shapes:
+        size = int(np.prod(shape, dtype=np.int64))
+        epoch.append(at(n_batches * size, dtype, offs[2],
+                        (n_batches, *shape)))
+        batch.append(at(size, dtype, offs[2], shape))
+    return params, epoch, batch, grad, casts, guards
+
+
+def _guards_hold(guards) -> bool:
+    import torch
+
+    return all(torch.equal(torch.cat([base[:lo], base[hi:]]), saved)
+               for base, lo, hi, saved in guards)
+
+
+def phase_k9(card):
+    """8f: K9 (``csrc/step.cu``, the training step's prologue) against its
+    plain version on the card over K9_CASES at K9_STEPS, bit-equal and
+    writing nothing outside its outputs; K5 with and without its step
+    tail, bit-equal, its block ticket 0 after each launch; K9 timed at the
+    128x1 and 512x3 steps (module docstring). Returns the numbers by
+    head."""
+    import ctypes
+
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import adam as ad
+    from vcf2prot_tpu_torch.downstream import step as st
+    from vcf2prot_tpu_torch.runtime.build import load_kernels
+    from vcf2prot_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(31)
+    timed = {}
+    for (hidden, depth), rows, n_batches, dp, offs in K9_CASES:
+        what = (f"K9 {hidden}x{depth}, {rows} rows x {n_batches} batches"
+                + (", with the batches' mask counts" if dp else "")
+                + (f", {offs} past alignment" if any(offs) else ""))
+        for steps_v in K9_STEPS:
+            steps = torch.tensor(steps_v, dtype=torch.int64, device=DEV)
+            outs = []
+            for fn in (st.step_prologue, st.step_prologue,
+                       st.step_prologue_reference):
+                gen.manual_seed(steps_v % 1000 + 7 * len(timed))
+                params, epoch, batch, grad, casts, guards = _k9_outputs(
+                    hidden, depth, rows, n_batches, dp, offs, gen)
+                before = st.step_prologue.launches
+                fn(steps, epoch, batch, grad, casts)
+                torch.cuda.synchronize()
+                check(st.step_prologue.launches
+                      == before + (fn is st.step_prologue),
+                      f"{what}: K9's launches not counted")
+                check(_guards_hold(guards), f"{what}, step {steps_v}: "
+                      f"{fn.__name__} wrote outside its outputs")
+                outs.append([*batch, grad,
+                             *(c.view(torch.int16) for _w, c in casts)])
+            check(int(steps) == steps_v, f"{what}: the step count moved")
+            for a, b, c in zip(*outs):
+                check(torch.equal(a, b), f"{what}, step {steps_v}: two "
+                      f"launches differ")
+                check(torch.equal(a, c), f"{what}, step {steps_v}: K9 "
+                      f"differs from its plain version")
+            check(not outs[0][len(batch)].signbit().any(),
+                  f"{what}: the gradient holds -0.0")
+        timed.setdefault(f"{hidden}x{depth}", (params, rows, n_batches)
+                         if not any(offs) and not dp else None)
+    print(f"K9 vs plain on {card}: {len(K9_CASES)} cases (" + "; ".join(
+        f"{h}x{d} {r} rows x {nb} batches" + (" +counts" if dp else "")
+        + (f" {offs} past alignment" if any(offs) else "")
+        for (h, d), r, nb, dp, offs in K9_CASES) + f") at step counts "
+        f"{K9_STEPS}: the batch, the zeroed gradient and the bf16 casts "
+        f"bit-equal to the plain version, two launches bit-equal, nothing "
+        f"written outside the outputs")
+
+    # K5 with its step tail against K5 without it
+    for what, n, off in (("128x1", 37_793, 0), ("512x3", 674_465, 0),
+                         ("128x1 1 element past alignment", 37_793, 1)):
+        sets = []
+        for _ in range(3):
+            gen.manual_seed(41)
+            arrays = []
+            for scale in (0.1, 1e-2, 1e-2):
+                base = torch.randn(n + 4, generator=gen, device=DEV) * scale
+                arrays.append(base[off:off + n])
+            arrays[2].abs_()
+            sets.append(arrays + [torch.tensor([5, 0], dtype=torch.int32,
+                                               device=DEV),
+                                  torch.zeros(ad.POWERS, dtype=torch.int32,
+                                              device=DEV)])
+        losses = [torch.full((K5_TAIL_LOSSES,), -1.0, device=DEV)
+                  for _ in range(2)]
+        steps = [torch.tensor(K5_TAIL_LOSSES - 2, dtype=torch.int64,
+                              device=DEV) for _ in range(2)]
+        for i in range(K5_STEPS):
+            g = torch.randn(n, generator=gen, device=DEV) * 1e-3
+            loss = torch.tensor(0.5 + i, device=DEV)
+            for j, (p, mu, nu, count, powers) in enumerate(sets):
+                tail = (dict(loss=loss, losses=losses[0], steps=steps[0])
+                        if j == 0 else {})
+                if j < 2:
+                    ad.adam_update(p, g, mu, nu, count, 1e-3, powers, **tail)
+                    torch.cuda.synchronize()
+                    check(int(count[1]) == 0, f"K5 {what}: the block ticket "
+                          f"is {int(count[1])} after a launch"
+                          + (" with the tail" if tail else ""))
+                else:
+                    ad.adam_update_reference(p, g, mu, nu, count, 1e-3,
+                                             loss, losses[1], steps[1])
+        for key, a, b, c in zip(("p", "mu", "nu", "count"), *(
+                sets_i[:4] for sets_i in sets)):
+            check(torch.equal(a, b), f"K5 {what}: {key} with the tail "
+                  f"differs from {key} without it")
+            check(torch.equal(a, c), f"K5 {what}: {key} differs from the "
+                  f"plain version's")
+        check(torch.equal(losses[0], losses[1])
+              and torch.equal(steps[0], steps[1])
+              and int(steps[0]) == K5_TAIL_LOSSES - 2 + K5_STEPS,
+              f"K5 {what}: the tail's losses {losses[0].tolist()} / steps "
+              f"{int(steps[0])}, plain {losses[1].tolist()} / "
+              f"{int(steps[1])}")
+    print(f"K5 with its step tail on {card} (128x1, 512x3, 128x1 1 element "
+          f"past alignment; {K5_STEPS} steps from a fresh cache, the losses "
+          f"wrapping {K5_TAIL_LOSSES} slots): p, mu, nu and the count "
+          f"bit-equal to K5 without the tail and to the plain version, the "
+          f"block ticket 0 after every launch, the losses and the step "
+          f"count the plain version's")
+
+    lib = load_kernels()
+    numbers = {}
+    for head in ("128x1", "512x3"):
+        params, rows, n_batches = timed[head]
+        hidden, depth = HEADS[head]["hidden"], HEADS[head]["depth"]
+        _p, epoch, batch, grad, casts, _g = _k9_outputs(
+            hidden, depth, rows, n_batches, False, (0, 0, 0), gen)
+        steps = torch.tensor(3, dtype=torch.int64, device=DEV)
+        copies = (ctypes.c_int64 * 9)(*(
+            v for src, dst in zip(epoch, batch)
+            for v in (src.data_ptr(), dst.data_ptr(),
+                      dst.numel() * dst.element_size())))
+        cast_rows = (ctypes.c_int64 * (3 * max(len(casts), 1)))(*(
+            v for w, out in casts
+            for v in (w.data_ptr(), out.data_ptr(), w.numel())))
+        alone = _launch_ms(lib.v2p_step_prologue, (
+            steps.data_ptr(), n_batches, ctypes.addressof(copies), 3,
+            grad.data_ptr(), grad.numel() * 4,
+            ctypes.addressof(cast_rows) if casts else None, len(casts)),
+            "step prologue")
+        wrapper, _ = _cuda_ms(lambda: st.step_prologue(
+            steps, epoch, batch, grad, casts), inner=BACK_TO_BACK)
+        graph = _graph_ms(lambda: st.step_prologue(steps, epoch, batch,
+                                                   grad, casts))
+        plain, _ = _cuda_ms(lambda: st.step_prologue_reference(
+            steps, epoch, batch, grad, casts))
+        replaced = _graph_ms(lambda: st.step_prologue_reference(
+            steps, epoch, batch, grad, casts))
+        n_bytes = roofline.step_prologue_bytes(params, rows)
+        bound, by = roofline.bound_ms(n_bytes)
+        numbers[head] = dict(
+            max_abs_err=0.0, ms=alone, graph_ms=graph, plain_ms=plain,
+            bound_ms=bound, bound_by=by, wrapper_ms=wrapper,
+            library_ms=None, replaced_graph_ms=replaced)
+        print(f"K9 at the {head} step ({rows} rows x {n_batches} batches, "
+              f"{grad.numel()} gradients zeroed, {len(casts)} hidden "
+              f"weights cast) on {card}: launched alone back to back "
+              f"{alone:.4f} ms, in a CUDA graph {graph:.4f} ms "
+              f"({100 * bound / graph:.1f}% of the {bound:.6f} ms bound by "
+              f"{by}, {n_bytes} bytes), wrapper {wrapper:.4f} ms, plain "
+              f"{plain:.4f} ms; the torch ops it replaced in a CUDA graph "
+              f"{replaced:.4f} ms")
+        del epoch, batch, grad, casts
+    torch.cuda.empty_cache()
+    return numbers
+
+
 @contextlib.contextmanager
 def dense_counts(edge=False):
     """K7's launch counts on its Hopper path from zero for the body, read
@@ -2574,7 +2836,7 @@ def phase_train(card):
     training path), through the functions of tools/train_synth_mhc.py,
     each step a replay of its captured graph and every epoch loop under
     ``set_sync_debug_mode("error")``; returns the trained weights by head
-    and the path's K3-K8 launches (replays counted)."""
+    and the path's K3-K9 launches (replays counted)."""
     from vcf2prot_tpu_torch.downstream import train
     from vcf2prot_tpu_torch.downstream.adam import adam_update
     from vcf2prot_tpu_torch.downstream.dense import KERNELS as DENSE_KERNELS
@@ -2588,6 +2850,7 @@ def phase_train(card):
         window_layer1,
         window_layer1_backward,
     )
+    from vcf2prot_tpu_torch.downstream.step import step_prologue
     from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
     win, labels, truth, n_tr = mhc.split_task(MHC_N)
@@ -2599,7 +2862,7 @@ def phase_train(card):
     train.fit(win[:MHC_BATCH], labels[:MHC_BATCH], epochs=1,
               batch_size=MHC_BATCH, device=DEV)
     window_layer1.launches = window_layer1_backward.launches = 0
-    adam_update.launches = 0
+    adam_update.launches = step_prologue.launches = 0
     for f in DENSE_KERNELS:
         f.launches = f.edge_launches = 0
     aucs, trained, k6, k8 = {}, {}, {}, {}
@@ -2629,6 +2892,7 @@ def phase_train(card):
     launches = {"window_layer1": window_layer1.launches,
                 "window_layer1_backward": window_layer1_backward.launches,
                 "adam_update": adam_update.launches,
+                "step_prologue": step_prologue.launches,
                 "head_tail_forward": sum(f for f, _b in k6.values()),
                 "head_tail_backward": sum(b for _f, b in k6.values()),
                 **{f.__name__: f.launches for f in DENSE_KERNELS},
@@ -2641,9 +2905,9 @@ def phase_train(card):
     # scores each holdout)
     want = len(TRAIN_HEADS) * (steps + train.CAPTURE_WARMUP)
     check(launches["window_layer1_backward"] == launches["adam_update"]
-          == want <= launches["window_layer1"],
-          f"training path launches {launches}: K4 and K5 not {want}, or K3 "
-          f"fewer")
+          == launches["step_prologue"] == want <= launches["window_layer1"],
+          f"training path launches {launches}: K4, K5 and K9 not {want}, or "
+          f"K3 fewer")
     # K7 both ways once a step for each hidden layer after the first (the
     # 512x3 head's two), its forward also in the holdouts' scoring
     want = sum(shape["depth"] - 1 for shape in TRAIN_HEADS.values()) * (
@@ -2736,6 +3000,22 @@ def k7_paths(names):
 LIBRARY_PRODUCT = re.compile(r"gemm|bmm", re.IGNORECASE)
 
 
+def port_kernels():
+    """A pattern that finds the port's own kernels (every ``__global__``
+    function of ``vcf2prot_tpu_torch/csrc/*.cu``) in the profiler's kernel
+    names."""
+    import glob
+
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                                       "*.cu")):
+        with open(path) as fh:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)\s*\(", fh.read()))
+    return re.compile(r"\b(?:" + "|".join(sorted(names)) + r")\b\s*[<(]")
+
+
 def _fit_profile(win, labels, n_tr, shape, capture):
     """One 2-epoch fit of the MHC task, its epoch loop alone under
     ``torch.profiler``: a dict of the host calls that put work on a stream
@@ -2789,9 +3069,10 @@ def phase_step_times(card, k4, k6, k7, k8):
     device time a step, host calls and device kernels a step, the shares of
     K4, K6, K8 and (512x3) K7, K7's kernels by the profiler's names (the
     Hopper path's alone at 512x3, none at 128x1), the device kernels a
-    step by name against the parent's count, no library product, no torch
-    op run by an AccumulateGrad and no cast but K7's operands' in the eager
-    step, then
+    step by name against the parent's count, no library product, every
+    kernel run once a step the port's own and none of the torch kernels K9
+    and K5's tail replaced, no torch op run by an AccumulateGrad and no
+    cast in the eager step, then
     phase 9's fits captured against eager, A B B A, with their weights
     bit-equal; beside each head's bound from ``utils/roofline.py``."""
     import numpy as np
@@ -2818,8 +3099,8 @@ def phase_step_times(card, k4, k6, k7, k8):
         bound, by = roofline.train_step_bound_ms(params, MHC_BATCH)
         k4_ms = k4[(name, K4_ROWS[0])]["ms"]
         print(f"{name} step bound {bound:.6f} ms by {by} "
-              f"(utils/roofline.py: K8, K3, the products, their gradients, "
-              f"K4, K8's gradient, K5); captured step "
+              f"(utils/roofline.py: K9, K8, K3, the products, their "
+              f"gradients, K4, K8's gradient, K5); captured step "
               f"{100 * bound / step[name]['captured']:.1f}% of it; K4 "
               f"{k4_ms:.4f} ms, "
               f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
@@ -2838,6 +3119,7 @@ def phase_step_times(card, k4, k6, k7, k8):
           f"{100 * k7_ms / step['512x3']['captured']:.1f}% of the captured "
           f"step (its first design {k7_first:.4f} ms in the same A/B)")
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
+    own = port_kernels()
     for name in CAPTURE_HEADS:
         shape = TRAIN_HEADS[name]
         per = {mode: _fit_profile(win, labels, n_tr, shape, mode == "captured")
@@ -2858,17 +3140,27 @@ def phase_step_times(card, k4, k6, k7, k8):
         for mode, v in per.items():
             check(v["k7"] == want, f"{name} {mode} epoch loop: the profiler "
                   f"saw K7's {sorted(v['k7'])} kernels, not {sorted(want)}")
-        # the fold and its gradient: K8, and none of the torch ops it
-        # replaced (a cuBLAS bmm each way, the casts, the AccumulateGrads)
+        # the step's bookkeeping: K9 and K5's tail, and none of the torch
+        # kernels they replaced; every kernel a step runs is the port's
+        # own (the epoch's permutation and gathers, once an epoch, show
+        # below one a step)
         got = per["captured"]["kernels"]
         print(f"{name} captured step on {card}: {got:.2f} device kernels "
               f"and copies a step, against {PARENT_STEP_KERNELS[name]:.2f} "
-              f"before K8 (commit 83e6430, PERF.md section 5), by name: "
+              f"before K9 (commit ae9e290, PERF.md section 5), by name: "
               + "; ".join(f"{n:.2f} {key[:100]}" for key, n in sorted(
                   per["captured"]["names"].items(), key=lambda kv: -kv[1])))
         check(got < PARENT_STEP_KERNELS[name], f"{name}: {got:.2f} device "
               f"kernels a captured step, not fewer than "
-              f"{PARENT_STEP_KERNELS[name]:.2f} before K8")
+              f"{PARENT_STEP_KERNELS[name]:.2f} before K9")
+        stepwise = {key: n for key, n in per["captured"]["names"].items()
+                    if n >= 0.5}
+        replaced = [key for key in stepwise if REPLACED_BY_K9.search(key)]
+        check(not replaced, f"{name} captured step: the torch kernels K9 "
+              f"and K5's tail replaced still run: {replaced}")
+        foreign = [key for key in stepwise if not own.search(key)]
+        check(not foreign, f"{name} captured step: kernels a step that are "
+              f"not the port's own: {foreign}")
         for mode, v in per.items():
             products = [key for key in v["names"]
                         if LIBRARY_PRODUCT.search(key)]
@@ -2885,10 +3177,8 @@ def phase_step_times(card, k4, k6, k7, k8):
         check(accumulated == 0, f"{name} eager step: {accumulated:.2f} "
               f"torch ops a step inside AccumulateGrads (every gradient "
               f"goes to a sink)")
-        # the only casts left: the hidden weights' bf16 casts (K7's)
-        check(casts <= shape["depth"] - 1, f"{name} eager step: "
-              f"{casts:.2f} casts a step, more than the {shape['depth'] - 1} "
-              f"hidden weights' bf16 casts")
+        # no cast: K9 writes the hidden weights' bf16 casts
+        check(casts == 0, f"{name} eager step: {casts:.2f} casts a step")
         kw = dict(epochs=MHC_EPOCHS, batch_size=MHC_BATCH, seed=0,
                   device=DEV, params=init_params(NEO_K, seed=0, **shape))
         walls, fits = {"captured": [], "eager": []}, {}
@@ -3160,10 +3450,10 @@ def dp_gaps(name, seeds, fault=False):
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     real = train.train_step
 
-    def dropped(replicas, opt, shards, *args):
+    def dropped(replicas, opt, shards, *args, **kw):
         w, y, m, count = shards[1]
         return real(replicas, opt, [shards[0], (w, y, m * 0, count),
-                                    *shards[2:]], *args)
+                                    *shards[2:]], *args, **kw)
 
     gaps = []
     for seed in seeds:
@@ -3181,8 +3471,8 @@ def dp_gaps(name, seeds, fault=False):
 
 def phase_dp_train(card):
     """15: the data-parallel fit over the repeated-card mesh (the fit's
-    step function and epoch loop, eager); returns the path's K3, K4, K5, K6
-    and K8 launches."""
+    step function and epoch loop, eager); returns the path's K3, K4, K5, K6,
+    K8 and K9 launches."""
     import numpy as np
     import torch
 
@@ -3201,6 +3491,7 @@ def phase_dp_train(card):
         window_layer1,
         window_layer1_backward,
     )
+    from vcf2prot_tpu_torch.downstream.step import step_prologue
     from vcf2prot_tpu_torch.tools import train_synth_mhc as mhc
 
     mesh = (torch.device("cuda", 0),) * MESH_SHARDS
@@ -3209,7 +3500,7 @@ def phase_dp_train(card):
     artifact = mhc.read_aucs(MHC_ARTIFACT)
     steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
     window_layer1.launches = window_layer1_backward.launches = 0
-    adam_update.launches = 0
+    adam_update.launches = step_prologue.launches = 0
     head_tail_forward.launches = head_tail_backward.launches = 0
     fold_forward.launches = fold_backward.launches = 0
     for name in DP_HEADS:
@@ -3237,9 +3528,14 @@ def phase_dp_train(card):
                 "head_tail_forward": head_tail_forward.launches,
                 "head_tail_backward": head_tail_backward.launches,
                 "fold_forward": fold_forward.launches,
-                "fold_backward": fold_backward.launches}
+                "fold_backward": fold_backward.launches,
+                "step_prologue": step_prologue.launches}
     check(all(launches.values()), f"a kernel of the dp fit never ran: "
                                   f"{launches}")
+    # K9 on every replica a step, K5 on the first
+    check(launches["step_prologue"] == MESH_SHARDS * launches["adam_update"]
+          == MESH_SHARDS * len(DP_HEADS) * steps,
+          f"dp fit launches {launches}: K9 not once a replica and step")
     for name in DP_HEADS:
         gaps = dp_gaps(name, DP_SEEDS)
         faults = dp_gaps(name, DP_SEEDS, fault=True)
@@ -3401,6 +3697,11 @@ def main():
         k8 = phase_k8(card)
         measured["fold_forward"] = k8["128x1"]["forward"]
         measured["fold_backward"] = k8["128x1"]["backward"]
+        k9 = phase_k9(card)
+        measured["step_prologue"] = dict(k9["128x1"], **{
+            "wide_" + key: k9["512x3"][key] for key in (
+                "ms", "graph_ms", "bound_ms", "plain_ms", "wrapper_ms",
+                "replaced_graph_ms")})
         fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
                                       pairs=False)
         neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
@@ -3475,6 +3776,8 @@ def main():
                          "vcf2prot_tpu/downstream/scoring.py:144"),
         "fold_backward": ("vcf2prot_tpu_torch/csrc/fold.cu",
                           "vcf2prot_tpu/downstream/train.py:157"),
+        "step_prologue": ("vcf2prot_tpu_torch/csrc/step.cu",
+                          "vcf2prot_tpu/downstream/train.py:167"),
     }
     launches = dict.fromkeys(meta, 0)
     for counts in paths.values():

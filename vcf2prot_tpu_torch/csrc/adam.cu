@@ -54,6 +54,18 @@
 // miss: threads 0 and 32 then compute one power each, as before. A hit
 // gives the bits a miss would, since both are the same power of the same
 // operands, so K5 stays bit-equal to its plain version either way.
+//
+// The step's tail (v2p_adam_step; since K9 took the rest of the step's
+// bookkeeping, csrc/step.cu): given a loss (fp32 scalar), a losses buffer
+// of n_losses and the training step count steps (int64), one thread stores
+// losses[steps % n_losses] = loss and then advances steps by one, the
+// torch ops downstream/train.py ran after each step (remainder, index_copy_,
+// add_), with no launch of their own. K5 reads nothing the tail writes, so
+// its update, its block ticket and its cache stay bit for bit as they are
+// without it (v2p_adam). The thread is 128 of block 0, after the block's
+// barrier, beside threads 64 and 96's powers of the next count: there it
+// delays no load of the update (its pointers are __restrict__, so nothing
+// waits for its stores), and K5 takes the time it took without a tail.
 
 #include <climits>
 #include <cmath>
@@ -114,12 +126,15 @@ __device__ __noinline__ float bias_of(float b, int32_t c) {
 }
 
 constexpr int kSlot = 8;  // int32 a slot of the powers' cache
+constexpr int kTail = 128;  // block 0's thread that takes the step's tail
 
 __global__ void __launch_bounds__(kThreads)
     adam_kernel(float* __restrict__ p, const float* __restrict__ g,
                 float* __restrict__ mu, float* __restrict__ nu,
                 int32_t* count, int32_t* powers, int64_t n, bool vec,
-                Consts k) {
+                Consts k, const float* __restrict__ loss,
+                float* __restrict__ losses, int64_t n_losses,
+                int64_t* __restrict__ steps) {
   __shared__ float bias[2];
   __shared__ int32_t next;
   __shared__ bool hit;
@@ -168,6 +183,13 @@ __global__ void __launch_bounds__(kThreads)
       count[0] = next;
       count[1] = 0;
     }
+  }
+  if (losses != nullptr && blockIdx.x == 0 && threadIdx.x == kTail) {
+    const int64_t s = *steps;
+    int64_t at = s % n_losses;
+    if (at < 0) at += n_losses;
+    losses[at] = *loss;
+    *steps = s + 1;
   }
   if (blockIdx.x == 0 && (threadIdx.x == 64 || threadIdx.x == 96)) {
     // the next launch's powers, into the slot of the other parity (a
@@ -222,11 +244,13 @@ __global__ void __launch_bounds__(kThreads)
 // count[0] the step count (advanced by one), count[1] the blocks' ticket
 // (0 between launches); powers the cache of bias corrections (16 int32,
 // 16-byte aligned, zeros when new, kept from launch to launch). A grid of
-// at least one block, so the count advances even when n is 0.
-extern "C" int v2p_adam(void* p, const void* g, void* mu, void* nu,
-                        void* count, void* powers, int64_t n, float neg_lr,
-                        float b1, float omb1, float b2, float omb2,
-                        float eps, void* stream) {
+// at least one block, so the count advances even when n is 0. losses null:
+// no tail.
+static int launch_adam(void* p, const void* g, void* mu, void* nu,
+                       void* count, void* powers, int64_t n, float neg_lr,
+                       float b1, float omb1, float b2, float omb2, float eps,
+                       const void* loss, void* losses, int64_t n_losses,
+                       void* steps, void* stream) {
   const bool vec = ((reinterpret_cast<uintptr_t>(p) |
                      reinterpret_cast<uintptr_t>(g) |
                      reinterpret_cast<uintptr_t>(mu) |
@@ -242,6 +266,30 @@ extern "C" int v2p_adam(void* p, const void* g, void* mu, void* nu,
       static_cast<float*>(p), static_cast<const float*>(g),
       static_cast<float*>(mu), static_cast<float*>(nu),
       static_cast<int32_t*>(count), static_cast<int32_t*>(powers), n, vec,
-      k);
+      k, static_cast<const float*>(loss), static_cast<float*>(losses),
+      n_losses, static_cast<int64_t*>(steps));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int v2p_adam(void* p, const void* g, void* mu, void* nu,
+                        void* count, void* powers, int64_t n, float neg_lr,
+                        float b1, float omb1, float b2, float omb2,
+                        float eps, void* stream) {
+  return launch_adam(p, g, mu, nu, count, powers, n, neg_lr, b1, omb1, b2,
+                     omb2, eps, nullptr, nullptr, 0, nullptr, stream);
+}
+
+// v2p_adam with the step's tail: losses[*steps % n_losses] = *loss (fp32),
+// then *steps (int64) advanced by one; n_losses >= 1.
+extern "C" int v2p_adam_step(void* p, const void* g, void* mu, void* nu,
+                             void* count, void* powers, int64_t n,
+                             float neg_lr, float b1, float omb1, float b2,
+                             float omb2, float eps, const void* loss,
+                             void* losses, int64_t n_losses, void* steps,
+                             void* stream) {
+  if (loss == nullptr || losses == nullptr || steps == nullptr ||
+      n_losses < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_adam(p, g, mu, nu, count, powers, n, neg_lr, b1, omb1, b2,
+                     omb2, eps, loss, losses, n_losses, steps, stream);
 }

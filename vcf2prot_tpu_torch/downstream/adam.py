@@ -12,7 +12,10 @@ int32, so one launch updates a whole head and reads nothing from the host:
 the launch can be captured in a CUDA graph. On the card K5 also needs a
 cache of its own, ``powers`` (:data:`POWERS` int32, zeros when new): the
 bias corrections of the next count, which each launch computes for the
-next one (``csrc/adam.cu``); the results do not depend on it.
+next one (``csrc/adam.cu``); the results do not depend on it. Given a
+fit's ``loss``, ``losses`` and ``steps``, K5 also takes the step's tail:
+the loss stored at ``losses[steps % len(losses)]``, the fit's step count
+advanced (K9, ``downstream/step.py``, takes the step's head).
 
 ``torch.optim.Adam`` is not this update: it moves the first moment with
 ``lerp_``, takes its bias corrections in float64 on the host and divides
@@ -55,13 +58,37 @@ def _check_adam_args(p, g, mu, nu, count) -> None:
         raise ValueError("p, g, mu, nu and count must share a device")
 
 
-def adam_update_reference(p, g, mu, nu, count, lr: float) -> None:
+def _check_tail(p, loss, losses, steps) -> bool:
+    """Whether the step's tail is asked for (all three tensors given, or
+    none)."""
+    given = [t is not None for t in (loss, losses, steps)]
+    if not any(given):
+        return False
+    if not all(given):
+        raise TypeError("the step's tail needs loss, losses and steps")
+    if loss.dtype != torch.float32 or loss.numel() != 1:
+        raise TypeError("loss must be an fp32 scalar tensor")
+    if (losses.dtype != torch.float32 or losses.dim() != 1
+            or not losses.is_contiguous() or losses.numel() < 1):
+        raise TypeError("losses must be a contiguous, non-empty 1-D fp32 "
+                        "tensor")
+    if steps.dtype != torch.int64 or steps.numel() != 1:
+        raise TypeError("steps must be an int64 scalar tensor")
+    if any(t.device != p.device for t in (loss, losses, steps)):
+        raise ValueError("loss, losses and steps must lie on p's device")
+    return True
+
+
+def adam_update_reference(p, g, mu, nu, count, lr: float, loss=None,
+                          losses=None, steps=None) -> None:
     """Plain torch version of K5, in place, one fp32 rounding an op in
     optax's order: ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*(g*g) +
     b2*nu``, ``c = count + 1`` (saturating), ``bc = 1 - b**c`` (the double
     power rounded to fp32), ``p = p + (-lr) * ((mu/bc1) / (sqrt(nu/bc2) +
     eps))``; ``count[0] = c``. The bias corrections stay device tensors: a
-    division by a Python scalar on the card multiplies by its reciprocal."""
+    division by a Python scalar on the card multiplies by its reciprocal.
+    With the step's tail, then ``losses[steps % len(losses)] = loss`` and
+    ``steps += 1`` (``remainder``, ``index_copy_``, ``add_``)."""
     k = _consts(lr)
     old = count[:1]
     c = torch.where(old < INT32_MAX, old + 1, old)
@@ -73,17 +100,27 @@ def adam_update_reference(p, g, mu, nu, count, lr: float) -> None:
     u = (mu / bc[0]) / (torch.sqrt(nu / bc[1]) + k["eps"])
     p.add_(u * k["neg_lr"])
     count[:1].copy_(c)
+    if _check_tail(p, loss, losses, steps):
+        at = torch.remainder(steps, losses.numel()).view(1)
+        losses.index_copy_(0, at, loss.view(1))
+        steps.add_(1)
 
 
-def adam_update(p, g, mu, nu, count, lr: float, powers=None) -> None:
+def adam_update(p, g, mu, nu, count, lr: float, powers=None, loss=None,
+                losses=None, steps=None) -> None:
     """One adam step, in place: ``p``, ``mu`` and ``nu`` (contiguous 1-D
     fp32) from the gradient ``g``, ``count`` (int32 ``[2]``: the step count,
     then K5's block ticket, 0 between launches) advanced by one. CUDA
     tensors run K5 on the current stream, with no wait, and need
     ``powers`` (int32 ``[POWERS]``, 16-byte aligned, zeros when new, kept
     from step to step), its cache of bias corrections; CPU tensors run
-    :func:`adam_update_reference`, which has no cache."""
+    :func:`adam_update_reference`, which has no cache. Given ``loss`` (an
+    fp32 scalar), ``losses`` (fp32 ``[L]``) and ``steps`` (an int64
+    scalar), one thread of the same launch stores ``losses[steps % L] =
+    loss`` and then advances ``steps`` by one: a fit's step tail, which
+    changes nothing else."""
     _check_adam_args(p, g, mu, nu, count)
+    tail = _check_tail(p, loss, losses, steps)
     if powers is not None and (
             powers.dtype != torch.int32 or powers.shape != (POWERS,)
             or not powers.is_contiguous() or powers.device != p.device
@@ -91,7 +128,7 @@ def adam_update(p, g, mu, nu, count, lr: float, powers=None) -> None:
         raise TypeError(f"powers must be a contiguous, 16-byte aligned "
                         f"int32 [{POWERS}] tensor on {p.device}")
     if p.device.type == "cpu":
-        adam_update_reference(p, g, mu, nu, count, lr)
+        adam_update_reference(p, g, mu, nu, count, lr, loss, losses, steps)
         return
     if p.device.type != "cuda":
         raise ValueError(f"unsupported device {p.device}")
@@ -101,12 +138,13 @@ def adam_update(p, g, mu, nu, count, lr: float, powers=None) -> None:
     lib = load_kernels()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
+        args = (p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                count.data_ptr(), powers.data_ptr(), p.numel(), k["neg_lr"],
+                k["b1"], k["omb1"], k["b2"], k["omb2"], k["eps"])
         check_launch(
-            lib.v2p_adam(p.data_ptr(), g.data_ptr(), mu.data_ptr(),
-                         nu.data_ptr(), count.data_ptr(), powers.data_ptr(),
-                         p.numel(),
-                         k["neg_lr"], k["b1"], k["omb1"], k["b2"], k["omb2"],
-                         k["eps"], stream),
+            lib.v2p_adam_step(*args, loss.data_ptr(), losses.data_ptr(),
+                              losses.numel(), steps.data_ptr(), stream)
+            if tail else lib.v2p_adam(*args, stream),
             "adam",
         )
     adam_update.launches += 1
@@ -132,9 +170,13 @@ class Adam:
         self.powers = torch.zeros(POWERS, dtype=torch.int32,
                                   device=head.flat.device)
 
-    def step(self) -> None:
+    def step(self, loss=None, losses=None, steps=None) -> None:
+        """One update from ``head.flat_grad``; given a fit's ``loss``,
+        ``losses`` and ``steps``, with the step's tail
+        (:func:`adam_update`)."""
         adam_update(self.head.flat, self.head.flat_grad, self.mu, self.nu,
-                    self.count, self.learning_rate, self.powers)
+                    self.count, self.learning_rate, self.powers, loss,
+                    losses, steps)
 
     def state(self) -> list:
         """The tensors a step changes: the parameters, mu, nu, the count."""

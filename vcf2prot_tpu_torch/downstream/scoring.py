@@ -698,7 +698,8 @@ class TrainableHead(nn.Module):
                  getattr(self, "b" + n[1:]))
                 for n in (self.names[1:] if names is None else names)]
 
-    def loss(self, windows, y, m, binary: bool, count=None) -> torch.Tensor:
+    def loss(self, windows, y, m, binary: bool, count=None,
+             hidden=None) -> torch.Tensor:
         """The masked mean loss of a batch (``head_tail.batch_loss`` of
         :meth:`forward`'s scores): u8 windows ``[B, k]``, fp32 labels
         ``y`` and mask ``m`` ``[B]``, ``count`` the whole batch's mask count
@@ -708,13 +709,21 @@ class TrainableHead(nn.Module):
         loss and their gradients as K6
         (:class:`~vcf2prot_tpu_torch.downstream.head_tail.HeadTail`) on
         the last hidden activations (bf16), whose backward adds the output
-        layer's ``w`` and ``b`` gradients the same way."""
-        hidden = self.names[1:-1]
+        layer's ``w`` and ``b`` gradients the same way. ``hidden``, the
+        bf16 casts of the hidden weights ``names[1:-1]`` (a fit's step
+        prologue writes them, ``downstream/step.py``), are the layers'
+        weights as given (None: each cast here)."""
+        names = self.names[1:-1]
+        weights = ([getattr(self, n).detach() for n in names]
+                   if hidden is None else list(hidden))
+        if len(weights) != len(names):
+            raise ValueError(f"{len(weights)} hidden weights for "
+                             f"{len(names)} hidden layers")
         h = hidden_layers(
             self._layer1(windows),
-            [(getattr(self, n).detach(), getattr(self, "b" + n[1:]).detach())
-             for n in hidden],
-            [(self.grads[n], self.grads["b" + n[1:]]) for n in hidden])
+            [(w, getattr(self, "b" + n[1:]).detach())
+             for n, w in zip(names, weights)],
+            [(self.grads[n], self.grads["b" + n[1:]]) for n in names])
         out = self.names[-1]
         bias = "b" + out[1:]
         return HeadTail.apply(h, getattr(self, out), getattr(self, bias), y,

@@ -25,13 +25,16 @@ nothing crossing the host link until the final fetch. Here the fit is
 device work with no host wait from the first step to the final fetch: the
 data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
 the rows into static epoch buffers on the device (:func:`_epoch_loop`);
-one training step (the batch picked from those buffers by a step count on
-the device, the forward and the loss, the backward through K8 and K3 (the
-fold and layer 1), K7 (the hidden layers after the first), K6 both ways
-(the output layer and the loss), K4 and K8's gradient, then K5;
-:func:`_step_fn`) is captured in a CUDA graph and
-replayed once per batch (:class:`CapturedStep`); each step's loss lands in
-a device tensor, and the weights and losses are fetched once, at the end.
+one training step (K9, the step's prologue: the batch picked from those
+buffers by a step count on the device, the gradient buffer zeroed, the
+hidden weights cast to bf16; the forward and the loss, the backward
+through K8 and K3 (the fold and layer 1), K7 (the hidden layers after the
+first), K6 both ways (the output layer and the loss), K4 and K8's
+gradient, then K5, whose tail stores the loss and advances the count;
+:func:`_step_fn`) is captured in a CUDA graph and replayed once per batch
+(:class:`CapturedStep`), so a replay launches the step's kernels and no
+torch op; each step's loss lands in a device tensor, and the weights and
+losses are fetched once, at the end.
 On the CPU the same step runs eagerly, on the kernels' plain versions;
 ``capture=False`` runs it eagerly on the card, to hold the captured fit
 against it.
@@ -48,7 +51,7 @@ cotangent, hazard 11) are summed in shard order on the first device, adam
 (K5) steps there, and the weights are copied back to the other replicas.
 It runs the same step function and epoch loop as one device, eagerly
 (capturing it needs peer copies inside a capture), with no wait in a
-step.
+step: K9 on each replica's device, K5 and its tail on the first.
 
     python -m vcf2prot_tpu_torch.downstream.train data.tsv out.npz \\
         [--epochs 30] [--lr 1e-3] [--batch 4096] [--seed 0] [--l2 0] \\
@@ -84,13 +87,14 @@ from .scoring import (
     window_layer1,
     window_layer1_backward,
 )
+from .step import step_prologue
 
 # steps run on a side stream before a capture
 CAPTURE_WARMUP = 3
 # the wrappers (and their launch counters) of the kernels a step launches
-STEP_KERNELS = (window_layer1, window_layer1_backward, head_tail_forward,
-                head_tail_backward, adam_update, *DENSE_KERNELS,
-                *FOLD_KERNELS)
+STEP_KERNELS = (step_prologue, window_layer1, window_layer1_backward,
+                head_tail_forward, head_tail_backward, adam_update,
+                *DENSE_KERNELS, *FOLD_KERNELS)
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -110,8 +114,9 @@ def _epoch_orders(seed: int, padded: int, epochs: int, device):
         yield torch.randperm(padded, generator=gen, device=device)
 
 
-def train_step(replicas, opt, shards, binary: bool,
-               l2: float = 0.0) -> torch.Tensor:
+def train_step(replicas, opt, shards, binary: bool, l2: float = 0.0,
+               zero: bool = True, hidden=None, ones=None,
+               record=None) -> torch.Tensor:
     """One optimizer step of the replicas of a head (:class:`TrainableHead`s,
     one per shard; a single-device fit has one): ``replicas[i]`` takes
     ``shards[i] = (w, y, m, count)``, the u8 windows ``[B, k]``, labels
@@ -121,56 +126,85 @@ def train_step(replicas, opt, shards, binary: bool,
     first's in shard order, ``opt`` (:class:`Adam` in a fit) steps the
     first replica, whose weights are then copied to the others. Returns the
     sum of the shards' losses on the first replica's device. Nothing waits
-    for the device, so a single-device step can be captured."""
+    for the device, so a single-device step can be captured.
+
+    The gradients add into each replica's ``flat_grad``, which ``zero``
+    zeroes first; a fit's step passes False, its prologue (K9) having
+    zeroed them. ``hidden[i]``: replica ``i``'s hidden weights in bf16
+    (None: cast in the step). ``ones[i]``: an fp32 1 on replica ``i``'s
+    device that seeds its backward (None: autograd makes one). ``record``,
+    ``(losses, steps)``: ``opt`` (an :class:`Adam`) also stores the loss at
+    ``losses[steps % len(losses)]`` and advances ``steps``, K5's tail."""
     n = len(replicas)
     loss = None
-    for head, (w, y, m, count) in zip(replicas, shards):
-        head.flat_grad.zero_()
-        part = head.loss(w, y, m, binary, count)
+    for i, (head, (w, y, m, count)) in enumerate(zip(replicas, shards)):
+        if zero:
+            head.flat_grad.zero_()
+        part = head.loss(w, y, m, binary, count,
+                         None if hidden is None else hidden[i])
         if l2:
             # added once in all: each shard carries 1/n of it
             part = part + l2 * sum((p * p).sum() for name, p in
                                    head.named_parameters()
                                    if name[0] == "w") / n
-        part.backward()
+        part.backward(None if ones is None else ones[i])
         part = part.detach()
         loss = part if loss is None else loss + part.to(loss.device)
     main = replicas[0]
     for head in replicas[1:]:
         main.flat_grad += head.flat_grad.to(main.flat_grad.device)
-    opt.step()
+    if record is None:
+        opt.step()
+    else:
+        opt.step(loss, *record)
     with torch.no_grad():
         for head in replicas[1:]:
             head.flat.copy_(main.flat)
     return loss
 
 
-def _step_fn(replicas, opt, shard_bufs, counts, losses, steps,
+def _step_fn(replicas, opt, epochs, batches, hidden, ones, losses, steps,
              binary: bool, l2: float):
-    """One training step of a fit, on static buffers only: batch ``steps %
-    n_batches`` of each replica's epoch buffers ``shard_bufs[i]`` (windows
-    ``[n_batches, rows, k]``, labels, mask) through :func:`train_step`,
-    with ``counts[b]``, the global batch's mask count (None on one device:
-    the batch's own), its loss into ``losses[steps % len(losses)]``, then
-    ``steps`` (a device int64) advanced. It reads nothing back to the host,
-    so a single-device step can be captured."""
-    n_batches = shard_bufs[0][0].shape[0]
+    """One training step of a fit, on static tensors only. For each
+    replica, K9 (:func:`~vcf2prot_tpu_torch.downstream.step.step_prologue`)
+    copies batch ``steps % n_batches`` of its epoch buffers ``epochs[i]``
+    (windows ``[n_batches, rows, k]``, labels, mask and, on a mesh, the
+    global batches' mask counts) into its static batch ``batches[i]``,
+    zeroes its gradient buffer and casts its hidden weights into
+    ``hidden[i]``; then :func:`train_step` (each backward seeded by
+    ``ones[i]``), whose K5 stores the loss at ``losses[steps %
+    len(losses)]`` and advances ``steps`` (a device int64). It reads
+    nothing back to the host, so a single-device step can be captured."""
+    casts = [[(getattr(head, n).detach(), w)
+              for n, w in zip(head.names[1:-1], bf16)]
+             for head, bf16 in zip(replicas, hidden)]
 
     def step():
-        b = torch.remainder(steps, n_batches).view(1)
         shards = []
-        for bufs in shard_bufs:
-            bd = b.to(bufs[0].device)
-            w, y, m = (t.index_select(0, bd)[0] for t in bufs)
-            count = (None if counts is None
-                     else counts.index_select(0, b)[0].to(w.device))
-            shards.append((w, y, m, count))
-        loss = train_step(replicas, opt, shards, binary, l2)
-        at = torch.remainder(steps, losses.numel()).view(1)
-        losses.index_copy_(0, at, loss.view(1))
-        steps.add_(1)
+        for head, epoch, batch, cast in zip(replicas, epochs, batches,
+                                            casts):
+            step_prologue(steps.to(head.flat.device), epoch, batch,
+                          head.flat_grad, cast)
+            shards.append((*batch[:3], batch[3] if len(batch) > 3 else None))
+        train_step(replicas, opt, shards, binary, l2, zero=False,
+                   hidden=hidden, ones=ones, record=(losses, steps))
 
     return step
+
+
+def _hidden_weights(head) -> list:
+    """Views of one bf16 buffer, made once, for the bf16 casts of
+    ``head``'s hidden weights (``names[1:-1]``), each starting a multiple
+    of 16 bytes into it, so that every view is 16-byte aligned as K7's
+    Hopper path needs. K7's forward saves its view for the backward; a
+    view that the next step's prologue rewrites is right only because that
+    prologue runs after this step's backward."""
+    weights = [getattr(head, n) for n in head.names[1:-1]]
+    offsets = np.cumsum([0] + [-(-w.numel() // 8) * 8 for w in weights])
+    buf = torch.empty(int(offsets[-1]), dtype=torch.bfloat16,
+                      device=head.flat.device)
+    return [buf[int(o):int(o) + w.numel()].view_as(w)
+            for o, w in zip(offsets, weights)]
 
 
 class CapturedStep:
@@ -222,12 +256,15 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
     fp32 labels and mask, ``P`` a multiple of ``batch_size``) uploaded
     once per distinct device, one replica of ``params`` a device, K5's
     state, static epoch buffers (each replica's slice of every global
-    batch) and a device loss buffer of ``n_losses``. Returns ``(replicas,
-    losses, fill, run)``: ``fill(order)`` gathers an epoch's rows in the
-    order ``order`` (a device tensor) into the epoch buffers, ``run()``
-    takes one step (:func:`_step_fn`), a replay of its captured graph
-    (:class:`CapturedStep`) on one CUDA device unless ``capture`` is
-    False. Nothing here waits for the device once set up."""
+    batch), a device loss buffer of ``n_losses``, and the step's static
+    tensors (each replica's batch, its bf16 hidden weights and an fp32 1),
+    all made before any capture: a captured step holds their addresses.
+    Returns ``(replicas, losses, fill, run)``: ``fill(order)`` gathers an
+    epoch's rows in the order ``order`` (a device tensor) into the epoch
+    buffers, ``run()`` takes one step (:func:`_step_fn`), a replay of its
+    captured graph (:class:`CapturedStep`) on one CUDA device unless
+    ``capture`` is False. Nothing here waits for the device once set
+    up."""
     n_shards = len(devices)
     n_batches = arrays[0].shape[0] // batch_size
     rows = batch_size // n_shards
@@ -239,11 +276,19 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
                                dtype=a.dtype, device=d) for a in data[d]]
                   for d in devices]
     dev = devices[0]
-    # each global batch's mask count: whole numbers, exact in fp32
+    # each global batch's mask count, on each device: whole numbers, exact
+    # in fp32
     counts = (None if n_shards == 1 else
-              torch.zeros(n_batches, dtype=torch.float32, device=dev))
+              {d: torch.zeros(n_batches, dtype=torch.float32, device=d)
+               for d in data})
     losses = torch.zeros(n_losses, dtype=torch.float32, device=dev)
     steps = torch.zeros((), dtype=torch.int64, device=dev)
+    epochs = [bufs + ([] if counts is None else [counts[d]])
+              for d, bufs in zip(devices, shard_bufs)]
+    batches = [[torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
+                for t in epoch] for epoch in epochs]
+    hidden = [_hidden_weights(head) for head in replicas]
+    ones = [torch.ones((), dtype=torch.float32, device=d) for d in devices]
 
     def fill(order):
         by_shard = order.view(n_batches, n_shards, rows)
@@ -254,10 +299,13 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
                                    out=dst.view(-1, *src.shape[1:]))
         if counts is not None:
             torch.sum(data[dev][2].index_select(0, order).view(
-                n_batches, -1), 1, out=counts)
+                n_batches, -1), 1, out=counts[dev])
+            for d, c in counts.items():
+                if d != dev:
+                    c.copy_(counts[dev])
 
-    run = _step_fn(replicas, opt, shard_bufs, counts, losses, steps,
-                   binary, l2)
+    run = _step_fn(replicas, opt, epochs, batches, hidden, ones, losses,
+                   steps, binary, l2)
     if n_shards == 1 and dev.type == "cuda" and capture:
         run = CapturedStep(run, opt.state() + [losses, steps])
     return replicas, losses, fill, run

@@ -59,6 +59,8 @@ SIGNATURES = {
     "v2p_window_layer1_grad_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,
                                    _P, _P, _P),
     "v2p_adam": (_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F, _P),
+    "v2p_adam_step": (_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F,
+                      _P, _P, _I64, _P, _P),
     "v2p_head_tail_fwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P, _P,
                           _P, _P, _P, _P),
     "v2p_head_tail_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P,
@@ -70,6 +72,7 @@ SIGNATURES = {
     "v2p_fold_forward": (_P, _P, _I64, _I64, _I64, _P, _P),
     "v2p_fold_backward": (_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P),
     "v2p_fold_launch_floor": (_I64, _I64, _I64, _I, _P),
+    "v2p_step_prologue": (_P, _I64, _P, _I64, _P, _I64, _P, _I64, _P),
 }
 
 _LIB = None

@@ -1,5 +1,6 @@
 """Compare versions of K1 (the executor), K2 (the validator), K5 (adam),
-K6 (the head's tail), K7 (the hidden layers) or K8 (the fold) on one card.
+K6 (the head's tail), K7 (the hidden layers) or K8 (the fold) on one card,
+or the training step with K9 against the same step without it.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
@@ -7,6 +8,7 @@ K6 (the head's tail), K7 (the hidden layers) or K8 (the fold) on one card.
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k6 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k7 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k8 OLD.cu NEW.cu [...]
+    python3 -m vcf2prot_tpu_torch.utils.kernel_ab k9
 
 Each source holds the kernel's C entry point (``v2p_segmented_copy_i32``,
 the ABI of ``csrc/executor.cu``, or ``v2p_validate_i32``, that of
@@ -67,6 +69,16 @@ each direction launched alone and in a CUDA graph, and the
 backward-then-forward pair a training step runs in a CUDA graph.
 ``vcf2prot_tpu_torch.utils.k4_ab`` does the same for K4 with this module's
 build and timing.
+
+``k9`` takes no source: it builds the fit's captured training step
+(``downstream/train.py``'s ``_trainer``, one card, K9_BATCHES batches of
+4,096 rows of the synthetic MHC task) for the 128x1 and 512x3 heads twice,
+once as the port runs it (K9 at its head, K5 with the step's tail) and once
+with the torch ops those replaced (``step_prologue_reference``, autograd's
+own seed of the backward, then the loss stored and the count advanced by
+``remainder``, ``index_copy_`` and ``add_``: the step of commit ae9e290),
+holds the two bit for bit over K9_STEPS steps (weights, losses, count),
+then times one replay of each graph, A B B A.
 """
 from __future__ import annotations
 
@@ -102,6 +114,10 @@ K6_ROWS, K6_PAD = 4096, 37
 K7_LAYERS = ((4096, 512, 512), (131072, 512, 512))
 # K8's folds (k, E, H): the 128x1 and 512x3 heads' (chip_smoke.K8_TIMED)
 K8_FOLDS = {"128x1": (9, 32, 128), "512x3": (9, 32, 512)}
+# K9's A/B: the heads (hidden width, depth), the epoch's batches of 4,096
+# rows and the steps the two steps are held equal over
+K9_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
+K9_BATCHES, K9_ROWS, K9_STEPS = 4, 4096, 6
 # a version that sums in another order than the plain version, against
 # float64: s and the loss within 1e-5 (relative to the largest |s|, and to
 # the loss), b2's gradient within 1e-4, dh and w2's gradient within one
@@ -735,7 +751,96 @@ def ab_k8(paths, fns):
     return bad, out
 
 
+def _torch_step_fn(replicas, opt, epochs, batches, hidden, ones, losses,
+                   steps, binary: bool, l2: float):
+    """``train._step_fn`` as the step ran before K9 and K5's tail: the
+    same step on the same static tensors through the torch ops those
+    replaced (single device)."""
+    from ..downstream import train
+    from ..downstream.step import step_prologue_reference
+
+    (head,), (epoch,), (batch,), (bf16,) = replicas, epochs, batches, hidden
+    casts = [(getattr(head, n).detach(), w)
+             for n, w in zip(head.names[1:-1], bf16)]
+
+    def step():
+        step_prologue_reference(steps, epoch, batch, head.flat_grad, casts)
+        loss = train.train_step(replicas, opt, [(*batch, None)], binary, l2,
+                                zero=False, hidden=hidden)
+        at = torch.remainder(steps, losses.numel()).view(1)
+        losses.index_copy_(0, at, loss.view(1))
+        steps.add_(1)
+
+    return step
+
+
+def _k9_trainer(params, torch_ops: bool):
+    """The fit's captured step (``train._trainer``) over K9_BATCHES
+    batches of the MHC task on the card, as the port runs it or
+    (``torch_ops``) as :func:`_torch_step_fn` does: ``(head, losses,
+    run)``."""
+    import numpy as np
+
+    from ..downstream import train
+    from ..tools import train_synth_mhc as mhc
+
+    rows = K9_BATCHES * K9_ROWS
+    win, labels, _truth, _n = mhc.split_task(rows)
+    real = train._step_fn
+    if torch_ops:
+        train._step_fn = _torch_step_fn
+    try:
+        replicas, losses, fill, run = train._trainer(
+            (win[:rows], labels[:rows], np.ones(rows, np.float32)), params,
+            (torch.device("cuda"),), K9_ROWS, 1e-3, True, 0.0, 5, True)
+    finally:
+        train._step_fn = real
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    fill(torch.randperm(rows, generator=gen, device="cuda"))
+    return replicas[0], losses, run
+
+
+def ab_k9():
+    """The captured step with K9 and K5's tail against the same step with
+    the torch ops they replaced, at K9_HEADS: held bit for bit over
+    K9_STEPS steps, then one replay each timed A B B A. Prints a line a
+    head; returns ``(heads whose two steps disagreed, {head: {"k9":
+    [ms, ms], "torch": [ms, ms]}})``."""
+    from ..downstream.scoring import init_params
+
+    bad, out = 0, {}
+    for name, (hidden, depth) in K9_HEADS.items():
+        params = init_params(9, seed=0, hidden=hidden, depth=depth)
+        sides = {side: _k9_trainer(params, side == "torch")
+                 for side in ("k9", "torch")}
+        for _ in range(K9_STEPS):
+            for _head, _losses, run in sides.values():
+                run()
+        torch.cuda.synchronize()
+        (h1, l1, _r1), (h2, l2, _r2) = sides.values()
+        same = torch.equal(h1.flat, h2.flat) and torch.equal(l1, l2)
+        bad += not same
+        times = {side: [] for side in sides}
+        for side in ("k9", "torch", "torch", "k9"):
+            times[side].append(median_ms(sides[side][2]))
+        out[name] = times
+        print(f"K9 {name} captured step ({K9_ROWS} rows, a replay, ms, A B "
+              f"B A): with K9 and K5's tail "
+              + " / ".join(f"{t:.4f}" for t in times["k9"])
+              + "; with the torch ops they replaced "
+              + " / ".join(f"{t:.4f}" for t in times["torch"])
+              + f"; weights and losses after {K9_STEPS} steps "
+              + ("bit-equal" if same else "DIFFER"))
+        del sides
+        torch.cuda.empty_cache()
+    return bad, out
+
+
 def main(argv) -> int:
+    if argv[:1] == ["k9"] and torch.cuda.is_available():
+        print(card())
+        return 1 if ab_k9()[0] else 0
     no_cohort = argv[:1] in (["k5"], ["k6"], ["k7"], ["k8"])
     if (not torch.cuda.is_available() or len(argv) < (2 if no_cohort else 4)
             or argv[0] not in ENTRIES):

@@ -270,10 +270,27 @@ def fold_bound_ms(k: int, e_dim: int, h_dim: int, part: str) -> tuple:
                     fold_ops(k, e_dim, h_dim, part))
 
 
+def step_prologue_bytes(params: dict, rows: int) -> int:
+    """K9's compulsory bytes at the head of a step of ``rows`` windows with
+    the head ``params``: the batch (u8 windows ``[rows, k]``, fp32 labels
+    and mask) read from the epoch buffers and written, the gradient buffer
+    (4 bytes a parameter) written, and each hidden weight read in fp32 and
+    written in bf16 (the step count's 8 bytes are left out)."""
+    from ..downstream.scoring import layer_names
+
+    names = layer_names(params)
+    k = params[names[0]].shape[0] // params["embed"].shape[1]
+    n_params = sum(int(np.size(v)) for v in params.values())
+    hidden = sum(int(np.size(params[name])) for name in names[1:-1])
+    return 2 * rows * (k + 8) + 4 * n_params + 6 * hidden
+
+
 def train_step_costs(params: dict, rows: int) -> dict:
     """``part -> (bytes, fp32 operations, bf16 tensor-core operations)`` of
     one training step of ``rows`` windows with the head ``params`` (int64
-    positions, each window's k bytes read once): K8 (the fold), K3, K7 (the
+    positions, each window's k bytes read once): K9 (the step's prologue:
+    the batch, the zeroed gradient, the hidden weights' casts), K8 (the
+    fold), K3, K7 (the
     hidden layers after the first) and its gradients, the ``[H, 1]`` output
     product and its gradient, K4, K8's gradient and K5. The output product
     reads its bf16-valued
@@ -304,6 +321,7 @@ def train_step_costs(params: dict, rows: int) -> dict:
     w_bytes = n_in * n_out * 4
     e_dim = params["embed"].shape[1]
     return {
+        "K9": (step_prologue_bytes(params, rows), 0, 0),
         "K8": (fold_bytes(k, e_dim, h1, "forward"),
                fold_ops(k, e_dim, h1, "forward"), 0),
         "K3": (scorer_bytes(rows, h1, 8, rows * k, k * VOCAB * h1),
