@@ -44,7 +44,12 @@ failing the run with a non-zero exit:
    with K1 and K3 launched at least once a chunk, against ``-g gpu`` and
    ``-g mt --neoantigen_k 9 --neoantigen_device`` (FASTAs + the cohort
    batch, the same scorer): rows equal, scores within rtol 1e-5 + atol
-   1e-6 (TSVs print 6 decimals), rows swapped only within that;
+   1e-6 (TSVs print 6 decimals), rows swapped only within that; the
+   cohort batch's scoring stage of ``-g gpu --neoantigen_device`` split
+   (``cohort_split``): ``score_cohort`` on the host clock and by CUDA
+   events around its ``score_windows`` beside its bound, ``np.lexsort``
+   (``rank_candidates``) and the TSV writer (``write_ranked_reports``) on
+   the host clock;
 7. wide head: ``--neoantigen_only`` with a 512x3 head written to an .npz,
    on the 128 x 1,200 cohort, against ``-g mt --neoantigen_k 9`` (fp32
    host math) within 5e-3 (bf16 rounding; up to 2.5e-3 measured on the
@@ -148,9 +153,15 @@ failing the run with a non-zero exit:
    at ``K9_STEPS``: bit-equal, nothing written outside its outputs; K5 with
    its step tail (the loss stored at ``steps % L``, the count advanced) and
    without, bit-equal in p, mu, nu and the count, its block ticket 0 after
-   every launch, the tail as its plain version's; at the 128x1 and 512x3
-   steps K9 launched alone, in a CUDA graph, its wrapper, its plain version
-   and the torch ops it replaced in a graph, beside its bound;
+   every launch, the tail as its plain version's; K5 with the step's jobs
+   (the gradient zeroed, the updated hidden weights cast, batch (steps + 1)
+   % n_batches staged) over ``K5_JOB_CASES`` at ``K9_STEPS`` bit-equal to
+   its plain version, two launches bit-equal, its ticket 0 after every
+   launch, guard elements around every output unchanged; at the 128x1 and
+   512x3 steps K9 launched alone, in a CUDA graph, its wrapper, its plain
+   version and the torch ops it replaced in a graph, beside its bound, and
+   K5 in a graph with the step's jobs and with its tail alone, A B B A,
+   beside its bound with the jobs;
 9. training: the synthetic MHC task of
    ``automation_scripts/train_synth_mhc.py`` (100,000 9-mers, 80/20, 20
    epochs, batch 4,096, seed 0) for the 8x1, 128x1, 512x1 and 512x3 heads
@@ -159,9 +170,9 @@ failing the run with a non-zero exit:
    its captured graph, every epoch loop under
    ``torch.cuda.set_sync_debug_mode("error")``): holdout AUC within
    [artifact - 0.01, ceiling + 0.02] of ``automation_scripts/artifacts/
-   synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4, K5 and K9 launched
-   once a step (replays counted), K6 and K8 once forward and once backward a
-   step on every head, K7's three kernels once a step for each of the
+   synth_mhc_training.tsv``, 128x1 above 8x1, K3, K4 and K5 launched
+   once a step (replays counted), K9 once an epoch, K6 and K8 once forward
+   and once backward a step on every head, K7's three kernels once a step for each of the
    512x3 head's two hidden layers after the first; fit walls;
 9b. step times: each head's captured step against its eager one
    (``capture=False``) by CUDA events, beside the step's bound, with the
@@ -170,12 +181,16 @@ failing the run with a non-zero exit:
    (``torch.profiler``), whose kernel names show K7's Hopper kernels and
    none of its edge path's in the 512x3 loop and no K7 kernel in the
    128x1 one; the device kernels a step by name beside the parent's
-   count (``PARENT_STEP_KERNELS``), fewer now, with no cuBLAS product
-   (``gemm``/``bmm``) among them, every kernel run once a step one of the
-   port's own (``csrc/*.cu``) and none of the torch kernels K9 and K5's
-   tail replaced (``REPLACED_BY_K9``), and in the eager loop no
-   ``aten::bmm`` or ``aten::einsum``, no torch op run by an AccumulateGrad
-   and no cast (``aten::_to_copy``); then phase 9's fits captured and
+   count (``PARENT_STEP_KERNELS``, K9 in the step), fewer now, with no
+   cuBLAS product (``gemm``/``bmm``) among them, every kernel run once a
+   step one of the port's own (``csrc/*.cu``), K9's kernel once an epoch
+   and K5's with the step's jobs once a step (by name, captured and
+   eager), none of the torch kernels K9 and K5's tail replaced
+   (``REPLACED_BY_K9``), and in the eager loop no ``aten::bmm`` or
+   ``aten::einsum``, no torch op run by an AccumulateGrad and no cast
+   (``aten::_to_copy``); the captured step with K5's jobs against the
+   same step with K9 at its head, bit-equal, A B B A
+   (``utils/kernel_ab.py``'s ``ab_k9``); then phase 9's fits captured and
    eager, A B B A, with bit-equal weights;
 10. the trained 512x3 head saved with ``save_params`` and served by
    ``--neoantigen_only --neoantigen_params`` on the 128 x 1,200 cohort
@@ -250,8 +265,10 @@ tail's numbers as ``wide_*``, K7's forward on a serving block as
 ``earlier_graph_ms`` too, K8 in a graph beside the torch ops it replaces,
 ``replaced_graph_ms``, and both ways as ``pair_graph_ms``, K9 at the
 128x1 step beside the torch ops it replaced in a graph
-(``replaced_graph_ms``) and at the 512x3 step as ``wide_*``, null where
-they do not apply); the last line is
+(``replaced_graph_ms``) and at the 512x3 step as ``wide_*``, K5 at those
+steps in a graph with the step's jobs (``jobs_graph_ms``, beside
+``jobs_bound_ms``) and with its tail alone (``tail_graph_ms``) in its own
+row, null where they do not apply); the last line is
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX package
 ``vcf2prot_tpu``.
 """
@@ -407,11 +424,20 @@ K9_CASES = (((128, 1), 4096, 20, False, (0, 0, 0)),
 K9_STEPS = (0, 1, 19, 22, 2 ** 40 + 3)
 # K5's tail (phase 8f): its losses buffer and the counts it starts from
 K5_TAIL_LOSSES = 7
+# K5 with the step's jobs (phase 8f): K9's cases, then the parameters
+# aligned and the casts' bf16 views 1 element off 8 bytes (the groups'
+# casts element by element), and a head whose last hidden weight starts 2
+# elements into a group of 4 of the parameters (groups across its edges)
+K5_JOB_CASES = K9_CASES + (((512, 3), 4096, 20, False, (0, 1, 0)),
+                           (((12, 10, 6), 0), 100, 4, False, (0, 0, 0)),
+                           (((12, 10, 6), 0), 100, 4, True, (0, 3, 1)))
 # the heads whose captured fits are held to eager ones (phase 9b)
 CAPTURE_HEADS = ("128x1", "512x3")
-# device kernels a captured step took before K9, at commit ae9e290
-# (PERF.md, section 5; an NVIDIA H100 80GB HBM3 at 700 W)
-PARENT_STEP_KERNELS = {"128x1": 17.57, "512x3": 27.57}
+# device kernels a captured step took with K9 at its head, at commit
+# b19e873, counted as phase 9b counts them, after the profiler's warm-up
+# (chip_archive/fit_ab.py --step-kernels; PERF.md, section 5; an NVIDIA
+# H100 80GB HBM3 at 700 W)
+PARENT_STEP_KERNELS = {"128x1": 10.05, "512x3": 18.05}
 # the torch kernels the step ran before K9 and K5's tail (the batch's
 # index_selects, the zero fill and the loss's seed, the loss's store, the
 # count's remainders and advance, the hidden weights' casts), as the
@@ -420,6 +446,12 @@ REPLACED_BY_K9 = re.compile(
     r"indexSelectSmallIndex|FillFunctor|index_copy_kernel_impl|"
     r"BUnaryFunctor<long|CUDAFunctorOnSelf_add<long|"
     r"bfloat16_copy_kernel_cuda")
+# the profiler's warm-up before an epoch loop: spin kernels of SPIN_CYCLES
+# cycles each (~25 us), left out of its counts (SPIN_KERNEL)
+PROFILER_WARMUP, SPIN_CYCLES = 32, 50_000
+SPIN_KERNEL = re.compile(r"\bspin_kernel\b")
+# K5's kernel with the step's jobs, as the profiler names it
+K5_WITH_JOBS = re.compile(r"adam_kernel<(?:true|\(bool\)1)>")
 # seconds a multi-host child may take (phase 16)
 MULTIHOST_TIMEOUT = 300
 # seconds a default-engine child may take (phases 17-19)
@@ -1399,6 +1431,56 @@ def phase_debug(workdir, vcf, fa):
           f"-g gpu {gpu_s:.3f} s, -g mt {mt_s:.3f} s; K2 launches {k2}")
 
 
+@contextlib.contextmanager
+def cohort_split():
+    """The cohort batch's stage (``cohort.write_reports_from_candidates``)
+    split for the body: yields a dict that gets the host seconds of the
+    port's own ``score_cohort``, ``rank_candidates`` (``np.lexsort``) and
+    ``write_ranked_reports`` (the TSV writer), summed over the body's
+    calls, and ``device_ms`` and ``windows``, CUDA events around each
+    ``score_windows`` that ``score_cohort`` calls (its upload, K3 and the
+    products) and the windows it scored. Each wrapper calls the function
+    it wraps, unchanged."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import cohort
+
+    split = dict(score_cohort=0.0, rank_candidates=0.0,
+                 write_ranked_reports=0.0, device_ms=0.0, windows=0)
+    names = ("score_cohort", "rank_candidates", "write_ranked_reports",
+             "score_windows")
+    real = {name: getattr(cohort, name) for name in names}
+
+    def scored(windows, head):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores = real["score_windows"](windows, head)
+        end.record()
+        end.synchronize()
+        split["device_ms"] += start.elapsed_time(end)
+        split["windows"] += len(windows)
+        return scores
+
+    def timed(name):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args)
+            finally:
+                split[name] += time.perf_counter() - t0
+        return call
+
+    for name in names:
+        setattr(cohort, name, scored if name == "score_windows"
+                else timed(name))
+    try:
+        yield split
+    finally:
+        for name, fn in real.items():
+            setattr(cohort, name, fn)
+
+
 def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
     """The device-resident chain through the CLI, against the cohort batch
     of -g gpu and -g mt (the same scorer); returns the path's launches and
@@ -1429,8 +1511,9 @@ def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
           "--neoantigen_only wrote FASTAs")
     check(len(files) == MAIN_SAMPLES, f"{len(files)} TSVs, not {MAIN_SAMPLES}")
     batch = os.path.join(workdir, "neo_batch")
-    batch_s = _run_cli(vcf, fa, batch, "gpu", "--neoantigen_device", "-v",
-                       *flags)
+    with cohort_split() as split:
+        batch_s = _run_cli(vcf, fa, batch, "gpu", "--neoantigen_device",
+                           "-v", *flags)
     host = os.path.join(workdir, "neo_mt")
     mt_s = _run_cli(vcf, fa, host, "mt", "--neoantigen_device", "-v",
                     *flags)
@@ -1446,6 +1529,22 @@ def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
           f"count), -g gpu --neoantigen_device {batch_s:.3f} s, "
           f"-g mt --neoantigen_device {mt_s:.3f} s; launches {launches} "
           f"for {n_neo_chunks} chunks")
+    from vcf2prot_tpu_torch.downstream.scoring import init_params
+    from vcf2prot_tpu_torch.utils import roofline
+
+    check(split["windows"] > 0 and split["score_cohort"] > 0,
+          f"the cohort batch scored nothing through score_cohort: {split}")
+    bound, by = roofline.bound_ms(*roofline.cohort_score_costs(
+        split["windows"], init_params(NEO_K)))
+    print(f"-g gpu --neoantigen_device's candidate scoring on {card} "
+          f"({split['windows']} windows, the default 128x1 head): "
+          f"score_cohort {split['score_cohort']:.3f} s on the host clock, "
+          f"of it {split['device_ms']:.3f} ms between CUDA events around "
+          f"score_windows (the windows' upload, K3 and the output product; "
+          f"bound {bound:.4f} ms by {by}) and the scores' fetch after; "
+          f"np.lexsort (rank_candidates) {split['rank_candidates']:.3f} s; "
+          f"the TSV writer (write_ranked_reports) "
+          f"{split['write_ranked_reports']:.3f} s")
     for d in (batch, host):
         shutil.rmtree(d)
     return launches, chain_s
@@ -2566,8 +2665,10 @@ def _k9_outputs(hidden, depth, rows, n_batches, dp, offs, gen):
     with 16 elements on either side: ``(params, epoch, batch, grad, casts,
     guards)``, the parameters in a buffer ``offs[0]`` in (the hidden
     weights' views of it, the gradient buffer), the casts' bf16 buffers
-    ``offs[1]`` in, the epoch and batch buffers ``offs[2]`` in; ``guards``
-    the buffers with their elements outside the views, to hold unchanged."""
+    ``offs[1]`` in, the epoch and batch buffers ``offs[2]`` in, then K5's
+    moments ``offs[0]`` in (nu >= 0); ``guards`` the buffers with their
+    elements outside the views, to hold unchanged. A dict of those, the
+    parameter buffer as ``flat``."""
     import numpy as np
     import torch
 
@@ -2610,7 +2711,10 @@ def _k9_outputs(hidden, depth, rows, n_batches, dp, offs, gen):
         epoch.append(at(n_batches * size, dtype, offs[2],
                         (n_batches, *shape)))
         batch.append(at(size, dtype, offs[2], shape))
-    return params, epoch, batch, grad, casts, guards
+    mu = at(n, torch.float32, offs[0], (n,)).mul_(1e-2)
+    nu = at(n, torch.float32, offs[0], (n,)).abs_().mul_(1e-2)
+    return dict(params=params, flat=flat, epoch=epoch, batch=batch,
+                grad=grad, casts=casts, guards=guards, mu=mu, nu=nu)
 
 
 def _guards_hold(guards) -> bool:
@@ -2624,9 +2728,11 @@ def phase_k9(card):
     """8f: K9 (``csrc/step.cu``, the training step's prologue) against its
     plain version on the card over K9_CASES at K9_STEPS, bit-equal and
     writing nothing outside its outputs; K5 with and without its step
-    tail, bit-equal, its block ticket 0 after each launch; K9 timed at the
-    128x1 and 512x3 steps (module docstring). Returns the numbers by
-    head."""
+    tail, bit-equal, its block ticket 0 after each launch; K5 with the
+    step's jobs against its plain version over K5_JOB_CASES; K9, and K5
+    with its jobs and with its tail alone, timed at the 128x1 and 512x3
+    steps (module docstring). Returns K9's numbers by head and, apart,
+    K5's with the jobs and with its tail alone by head."""
     import ctypes
 
     import torch
@@ -2649,8 +2755,10 @@ def phase_k9(card):
             for fn in (st.step_prologue, st.step_prologue,
                        st.step_prologue_reference):
                 gen.manual_seed(steps_v % 1000 + 7 * len(timed))
-                params, epoch, batch, grad, casts, guards = _k9_outputs(
-                    hidden, depth, rows, n_batches, dp, offs, gen)
+                o = _k9_outputs(hidden, depth, rows, n_batches, dp, offs,
+                                gen)
+                params, epoch, batch, grad, casts, guards = (o[key] for key in (
+                    "params", "epoch", "batch", "grad", "casts", "guards"))
                 before = st.step_prologue.launches
                 fn(steps, epoch, batch, grad, casts)
                 torch.cuda.synchronize()
@@ -2732,13 +2840,73 @@ def phase_k9(card):
           f"block ticket 0 after every launch, the losses and the step "
           f"count the plain version's")
 
+    # K5 with the step's jobs against its plain version
+    for (hidden, depth), rows, n_batches, dp, offs in K5_JOB_CASES:
+        what = (f"K5 with the step's jobs, {hidden}x{depth}, {rows} rows x "
+                f"{n_batches} batches"
+                + (", with the batches' mask counts" if dp else "")
+                + (f", {offs} past alignment" if any(offs) else ""))
+        for steps_v in K9_STEPS:
+            outs = []
+            for kernel in (True, True, False):
+                gen.manual_seed(steps_v % 1000 + 11)
+                o = _k9_outputs(hidden, depth, rows, n_batches, dp, offs,
+                                gen)
+                o["grad"].mul_(1e-3)
+                count = torch.tensor([5, 0], dtype=torch.int32, device=DEV)
+                powers = torch.zeros(ad.POWERS, dtype=torch.int32,
+                                     device=DEV)
+                losses = torch.full((K5_TAIL_LOSSES,), -1.0, device=DEV)
+                steps = torch.tensor(steps_v, dtype=torch.int64, device=DEV)
+                args = (o["flat"], o["grad"], o["mu"], o["nu"], count, 1e-3)
+                tail = (torch.tensor(0.75, device=DEV), losses, steps)
+                jobs = dict(epoch=o["epoch"], batch=o["batch"],
+                            casts=o["casts"])
+                if kernel:
+                    before = ad.adam_update.launches
+                    ad.adam_update(*args, powers, *tail, **jobs)
+                    torch.cuda.synchronize()
+                    check(ad.adam_update.launches == before + 1,
+                          f"{what}: K5's launch not counted")
+                    check(int(count[1]) == 0, f"{what}, step {steps_v}: the "
+                          f"block ticket is {int(count[1])} after a launch")
+                else:
+                    ad.adam_update_reference(*args, *tail, **jobs)
+                check(_guards_hold(o["guards"]), f"{what}, step {steps_v}: "
+                      f"{'K5' if kernel else 'the plain version'} wrote "
+                      f"outside its outputs")
+                outs.append([*args[:5], losses, steps, *o["batch"],
+                             *(c.view(torch.int16) for _w, c in o["casts"])])
+            for a, b, c in zip(*outs):
+                check(torch.equal(a, b), f"{what}, step {steps_v}: two "
+                      f"launches differ")
+                check(torch.equal(a, c), f"{what}, step {steps_v}: K5 "
+                      f"differs from its plain version")
+            check(not outs[0][1].any() and not outs[0][1].signbit().any(),
+                  f"{what}: the gradient is not +0.0 after K5")
+            check(int(outs[0][6]) == steps_v + 1, f"{what}: steps "
+                  f"{int(outs[0][6])}")
+    print(f"K5 with the step's jobs vs plain on {card}: "
+          f"{len(K5_JOB_CASES)} cases (K9's, then " + "; ".join(
+              f"{h}x{d} {r} rows x {nb} batches" + (" +counts" if dp else "")
+              + f" {offs} past alignment"
+              for (h, d), r, nb, dp, offs in K5_JOB_CASES[len(K9_CASES):])
+          + f") at step counts {K9_STEPS}: p, mu, nu, the count, the "
+          f"zeroed gradient, the loss and step count, batch (steps + 1) % "
+          f"n_batches and the bf16 casts of the updated hidden weights "
+          f"bit-equal to the plain version, two launches bit-equal, the "
+          f"block ticket 0 after every launch, nothing written outside the "
+          f"outputs")
+
     lib = load_kernels()
-    numbers = {}
+    numbers, k5_numbers = {}, {}
     for head in ("128x1", "512x3"):
         params, rows, n_batches = timed[head]
         hidden, depth = HEADS[head]["hidden"], HEADS[head]["depth"]
-        _p, epoch, batch, grad, casts, _g = _k9_outputs(
-            hidden, depth, rows, n_batches, False, (0, 0, 0), gen)
+        o = _k9_outputs(hidden, depth, rows, n_batches, False, (0, 0, 0),
+                        gen)
+        epoch, batch, grad, casts = (o[key] for key in (
+            "epoch", "batch", "grad", "casts"))
         steps = torch.tensor(3, dtype=torch.int64, device=DEV)
         copies = (ctypes.c_int64 * 9)(*(
             v for src, dst in zip(epoch, batch)
@@ -2762,10 +2930,48 @@ def phase_k9(card):
             steps, epoch, batch, grad, casts))
         n_bytes = roofline.step_prologue_bytes(params, rows)
         bound, by = roofline.bound_ms(n_bytes)
+        # K5 in a CUDA graph with the step's jobs (the step's share of K9)
+        # and with its tail alone (as before them), A B B A, each side from
+        # the same parameters, moments and gradient (K9 above zeroed it)
+        flat, mu, nu = o["flat"], o["mu"], o["nu"]
+        grad.copy_(torch.randn(grad.shape, generator=gen, device=DEV) * 1e-3)
+        state = [flat, grad, mu, nu]
+        saved = [t.clone() for t in state]
+        count = torch.zeros(2, dtype=torch.int32, device=DEV)
+        powers = torch.zeros(ad.POWERS, dtype=torch.int32, device=DEV)
+        tail = (torch.tensor(0.5, device=DEV),
+                torch.zeros(K5_TAIL_LOSSES, device=DEV), steps)
+        jobs = dict(epoch=epoch, batch=batch, casts=casts)
+        k5 = {"jobs": [], "tail": []}
+        for side in ("jobs", "tail", "tail", "jobs"):
+            for t, t0 in zip(state, saved):
+                t.copy_(t0)
+            count.zero_()
+            powers.zero_()
+            k5[side].append(_graph_ms(lambda: ad.adam_update(
+                flat, grad, mu, nu, count, 1e-3, powers, *tail,
+                **(jobs if side == "jobs" else {}))))
+        job_bytes = roofline.adam_step_bytes(params, rows)
+        job_bound, job_by = roofline.bound_ms(job_bytes,
+                                              roofline.adam_ops(flat.numel()))
         numbers[head] = dict(
             max_abs_err=0.0, ms=alone, graph_ms=graph, plain_ms=plain,
             bound_ms=bound, bound_by=by, wrapper_ms=wrapper,
             library_ms=None, replaced_graph_ms=replaced)
+        k5_numbers[head] = dict(
+            jobs_graph_ms=statistics.median(k5["jobs"]),
+            tail_graph_ms=statistics.median(k5["tail"]),
+            jobs_bound_ms=job_bound)
+        print(f"K5 at the {head} step on {card}, in a CUDA graph, A B B A: "
+              f"with the step's jobs (the gradient zeroed, "
+              f"{len(casts)} hidden weights cast, the next batch staged) "
+              + " / ".join(f"{t:.4f}" for t in k5["jobs"])
+              + " ms, with its tail alone "
+              + " / ".join(f"{t:.4f}" for t in k5["tail"])
+              + f" ms; bound with the jobs {job_bound:.6f} ms by {job_by} "
+              f"({job_bytes} bytes), "
+              f"{100 * job_bound / k5_numbers[head]['jobs_graph_ms']:.1f}% of "
+              f"it")
         print(f"K9 at the {head} step ({rows} rows x {n_batches} batches, "
               f"{grad.numel()} gradients zeroed, {len(casts)} hidden "
               f"weights cast) on {card}: launched alone back to back "
@@ -2774,9 +2980,9 @@ def phase_k9(card):
               f"{by}, {n_bytes} bytes), wrapper {wrapper:.4f} ms, plain "
               f"{plain:.4f} ms; the torch ops it replaced in a CUDA graph "
               f"{replaced:.4f} ms")
-        del epoch, batch, grad, casts
+        del epoch, batch, grad, casts, o, flat, mu, nu, state, saved
     torch.cuda.empty_cache()
-    return numbers
+    return numbers, k5_numbers
 
 
 @contextlib.contextmanager
@@ -2806,7 +3012,11 @@ def epoch_loop_watch(sync_error=True, profiler=None):
     permutations, the gathers and every step) run under
     ``torch.cuda.set_sync_debug_mode("error")``, so that a wait for the
     device there raises, and, given a ``torch.profiler.profile`` object,
-    inside it."""
+    inside it, after PROFILER_WARMUP spin kernels (``torch.cuda._sleep``,
+    named ``spin_kernel``) and a wait for them: the profiler records no
+    device activity in the first tens of microseconds after it starts (a
+    fit's first K9 and the first kernels of its first replay went missing
+    without them), and :func:`_fit_profile` leaves the spin kernels out."""
     import torch
 
     from vcf2prot_tpu_torch.downstream import train
@@ -2815,6 +3025,10 @@ def epoch_loop_watch(sync_error=True, profiler=None):
 
     def watched(*args):
         with profiler if profiler is not None else contextlib.nullcontext():
+            if profiler is not None:
+                for _ in range(PROFILER_WARMUP):
+                    torch.cuda._sleep(SPIN_CYCLES)
+                torch.cuda.synchronize()
             if sync_error:
                 torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2905,9 +3119,14 @@ def phase_train(card):
     # scores each holdout)
     want = len(TRAIN_HEADS) * (steps + train.CAPTURE_WARMUP)
     check(launches["window_layer1_backward"] == launches["adam_update"]
-          == launches["step_prologue"] == want <= launches["window_layer1"],
-          f"training path launches {launches}: K4, K5 and K9 not {want}, or "
-          f"K3 fewer")
+          == want <= launches["window_layer1"],
+          f"training path launches {launches}: K4 and K5 not {want}, or K3 "
+          f"fewer")
+    # K9 once an epoch, after each epoch's gather: none in a step (K5's
+    # jobs take its per-step work)
+    check(launches["step_prologue"] == len(TRAIN_HEADS) * MHC_EPOCHS,
+          f"training path launches {launches}: K9 not once an epoch "
+          f"({len(TRAIN_HEADS) * MHC_EPOCHS})")
     # K7 both ways once a step for each hidden layer after the first (the
     # 512x3 head's two), its forward also in the holdouts' scoring
     want = sum(shape["depth"] - 1 for shape in TRAIN_HEADS.values()) * (
@@ -3044,6 +3263,8 @@ def _fit_profile(win, labels, n_tr, shape, capture):
     for ev in prof.key_averages():
         if ev.key in LAUNCH_CALLS:
             calls[ev.key] = ev.count / steps
+        if SPIN_KERNEL.search(ev.key) or ev.key == "aten::_sleep":
+            continue
         total = getattr(ev, "device_time_total", 0) or 0
         if total and getattr(ev, "device_type", None) == \
                 torch.autograd.DeviceType.CUDA:
@@ -3051,6 +3272,9 @@ def _fit_profile(win, labels, n_tr, shape, capture):
             busy += total / 1e3
         elif ev.key.startswith("aten::"):
             ops[ev.key] = ev.count / steps
+    # the warm-up's spin kernels were launched by cudaLaunchKernel
+    calls["cudaLaunchKernel"] = (calls.get("cudaLaunchKernel", 0.0)
+                                 - PROFILER_WARMUP / steps)
     accumulated = 0
     for ev in prof.events():
         parent = ev.cpu_parent
@@ -3061,7 +3285,8 @@ def _fit_profile(win, labels, n_tr, shape, capture):
             "kernels": sum(names.values()), "names": names,
             "busy": busy / steps, "ops": ops,
             "accumulated": accumulated / steps,
-            "k7": k7_paths(device_kernels(prof))}
+            "k7": k7_paths(device_kernels(prof)), "epochs": epochs,
+            "steps": steps}
 
 
 def phase_step_times(card, k4, k6, k7, k8):
@@ -3099,8 +3324,9 @@ def phase_step_times(card, k4, k6, k7, k8):
         bound, by = roofline.train_step_bound_ms(params, MHC_BATCH)
         k4_ms = k4[(name, K4_ROWS[0])]["ms"]
         print(f"{name} step bound {bound:.6f} ms by {by} "
-              f"(utils/roofline.py: K9, K8, K3, the products, their "
-              f"gradients, K4, K8's gradient, K5); captured step "
+              f"(utils/roofline.py: K8, K3, the products, their "
+              f"gradients, K4, K8's gradient, K5 with the step's jobs); "
+              f"captured step "
               f"{100 * bound / step[name]['captured']:.1f}% of it; K4 "
               f"{k4_ms:.4f} ms, "
               f"{100 * k4_ms / step[name]['captured']:.1f}% of the captured "
@@ -3118,6 +3344,18 @@ def phase_step_times(card, k4, k6, k7, k8):
           f"phase 8d's A/B) {k7_ms:.4f} ms, "
           f"{100 * k7_ms / step['512x3']['captured']:.1f}% of the captured "
           f"step (its first design {k7_first:.4f} ms in the same A/B)")
+    # the captured step with the step's jobs in K5 against the same step
+    # with K9 at its head (commit b19e873's arrangement), A B B A
+    from vcf2prot_tpu_torch.utils import kernel_ab
+
+    bad, ab = kernel_ab.ab_k9()
+    check(bad == 0, "the captured step with K5's jobs differs from the "
+                    "step with K9 at its head")
+    for name, times in ab.items():
+        print(f"{name} captured step, A B B A in one call on {card}: "
+              f"median {statistics.median(times['k5']):.4f} ms with the "
+              f"step's jobs in K5, {statistics.median(times['k9']):.4f} ms "
+              f"with K9 at its head")
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     own = port_kernels()
     for name in CAPTURE_HEADS:
@@ -3147,12 +3385,24 @@ def phase_step_times(card, k4, k6, k7, k8):
         got = per["captured"]["kernels"]
         print(f"{name} captured step on {card}: {got:.2f} device kernels "
               f"and copies a step, against {PARENT_STEP_KERNELS[name]:.2f} "
-              f"before K9 (commit ae9e290, PERF.md section 5), by name: "
-              + "; ".join(f"{n:.2f} {key[:100]}" for key, n in sorted(
-                  per["captured"]["names"].items(), key=lambda kv: -kv[1])))
+              f"with K9 in the step (commit b19e873, PERF.md section 5), by "
+              f"name: " + "; ".join(f"{n:.2f} {key[:100]}" for key, n in
+                                    sorted(per["captured"]["names"].items(),
+                                           key=lambda kv: -kv[1])))
         check(got < PARENT_STEP_KERNELS[name], f"{name}: {got:.2f} device "
               f"kernels a captured step, not fewer than "
-              f"{PARENT_STEP_KERNELS[name]:.2f} before K9")
+              f"{PARENT_STEP_KERNELS[name]:.2f} with K9 in the step")
+        # K9 once an epoch (the fills), K5 with the step's jobs once a step
+        for mode, v in per.items():
+            by_name = {key: n * v["steps"] for key, n in v["names"].items()}
+            k9 = sum(n for key, n in by_name.items()
+                     if "step_prologue_kernel" in key)
+            k5 = sum(n for key, n in by_name.items()
+                     if K5_WITH_JOBS.search(key))
+            check(round(k9) == v["epochs"] and round(k5) == v["steps"],
+                  f"{name} {mode} epoch loop: K9 ran {k9:.0f} times and K5 "
+                  f"with the step's jobs {k5:.0f} in {v['epochs']} epochs of "
+                  f"{v['steps'] // v['epochs']} steps")
         stepwise = {key: n for key, n in per["captured"]["names"].items()
                     if n >= 0.5}
         replaced = [key for key in stepwise if REPLACED_BY_K9.search(key)]
@@ -3697,11 +3947,15 @@ def main():
         k8 = phase_k8(card)
         measured["fold_forward"] = k8["128x1"]["forward"]
         measured["fold_backward"] = k8["128x1"]["backward"]
-        k9 = phase_k9(card)
+        k9, k5_jobs = phase_k9(card)
         measured["step_prologue"] = dict(k9["128x1"], **{
             "wide_" + key: k9["512x3"][key] for key in (
                 "ms", "graph_ms", "bound_ms", "plain_ms", "wrapper_ms",
                 "replaced_graph_ms")})
+        # K5 with the step's jobs and with its tail alone, in a graph
+        measured["adam_update"].update(
+            k5_jobs["128x1"],
+            **{"wide_" + key: v for key, v in k5_jobs["512x3"].items()})
         fasta_shards = shard_launches(flat, CHUNK_BYTES * MESH_SHARDS,
                                       pairs=False)
         neo_shards = shard_launches(flat, NEO_CHUNK_BYTES, pairs=True)
@@ -3800,7 +4054,9 @@ def main():
             "wide_replaced_graph_ms", "wide_pair_graph_ms", "block_ms",
             "block_graph_ms", "block_plain_ms", "block_bound_ms",
             "block_library_ms", "block_earlier_ms", "block_earlier_graph_ms",
-            "floor_ms")
+            "floor_ms", "jobs_graph_ms", "jobs_bound_ms", "tail_graph_ms",
+            "wide_jobs_graph_ms", "wide_jobs_bound_ms",
+            "wide_tail_graph_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

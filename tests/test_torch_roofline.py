@@ -101,21 +101,23 @@ def test_scorer_counts():
 
 
 # K5's bytes and one training step's bound at 4,096 rows, as PERF.md
-# records them (K9, the step's prologue, counted since it took the torch
-# ops of the step's head: 0.0028 and 0.0374 ms before)
+# records them (K5 with the step's jobs, which took K9's per-step work: the
+# next batch, the zeroed gradient and the casts, now written from the
+# updated parameters, so the hidden weights' fp32 reads left the step: 0.0392
+# ms at 512x3 with K9 in the step, 0.0028 and 0.0374 before K9)
 STEP_BOUNDS = {
     "128x1": (37_793, 1_058_204, 0.0003, (0.0029, "bytes"),
-              {"K9": (290_436, 0, 0), "K8": (198_528, 1_548_288, 0),
+              {"K8": (198_528, 1_548_288, 0),
                "K3": (1_167_104, 4_718_592, 0), "K7": (0, 0, 0),
                "K7's gradients": (0, 0, 0),
                "products": (1_065_472, 1_048_576, 0),
                "products' gradients": (3_163_136, 2_097_152, 0),
                "K4": (2_264_064, 4_718_592, 0),
                "K8's gradient": (548_736, 3_096_704, 0),
-               "K5": (1_058_204, 529_102, 0)}),
+               "K5": (1_348_640, 529_102, 0)}),
     # K7's products on the tensor cores: bytes bound the step, where the
     # same products at the fp32 peak gave 0.1932 ms
-    "512x3": (674_465, 18_885_020, 0.0056, (0.0392, "bytes"), None),
+    "512x3": (674_465, 18_885_020, 0.0056, (0.0386, "bytes"), None),
 }
 
 
@@ -129,13 +131,17 @@ def test_adam_and_training_step_bounds(head):
     bound, by = roofline.bound_ms(adam, roofline.adam_ops(n_params))
     assert (round(bound, 4), by) == (adam_ms, "bytes")
     costs = roofline.train_step_costs(params, 4096)
-    assert list(costs) == ["K9", "K8", "K3", "K7", "K7's gradients",
+    assert list(costs) == ["K8", "K3", "K7", "K7's gradients",
                            "products", "products' gradients", "K4",
                            "K8's gradient", "K5"]
     if parts is not None:
         assert costs == parts
-    assert costs["K5"] == (adam, roofline.adam_ops(n_params), 0)
-    assert costs["K9"] == (roofline.step_prologue_bytes(params, 4096), 0, 0)
+    step5 = roofline.adam_step_bytes(params, 4096)
+    assert costs["K5"] == (step5, roofline.adam_ops(n_params), 0)
+    # K5's jobs move K9's bytes but the hidden weights' fp32 reads
+    n_hidden = sum(params[f"w{i}"].size for i in range(2, depth + 1))
+    assert step5 == adam + roofline.step_prologue_bytes(
+        params, 4096) - 4 * n_hidden
     bound, by = roofline.train_step_bound_ms(params, 4096)
     assert (round(bound, 4), by) == step
     assert bound == roofline.bound_ms(
@@ -232,3 +238,21 @@ def test_no_bound_arithmetic_of_its_own(path):
     names = defined_names(os.path.join(ROOT, path))
     assert not names & {"_bound", "_covered_bytes", "HBM_RATE", "FP32_RATE"}
     assert "roofline" in open(os.path.join(ROOT, path)).read()
+
+
+@pytest.mark.parametrize("head", ["128x1", "512x3"])
+def test_cohort_score_costs(head):
+    """The cohort batch's scoring (``cohort.score_cohort``): the windows
+    read and the scores written once, the folded bf16 table and the later
+    layers read once; K3's adds and the output product in fp32, the hidden
+    layers' products on the tensor cores."""
+    hidden, depth = HEADS[head]
+    params = init_params(9, hidden=hidden, depth=depth, seed=0)
+    m = 1000
+    later = sum(params[f"{p}{i}"].size for i in range(2, depth + 2)
+                for p in "wb")
+    n_bytes, fp32, tensor = roofline.cohort_score_costs(m, params)
+    assert n_bytes == m * (9 + 4) + 9 * 21 * hidden * 2 + hidden * 4 + (
+        4 * later)
+    assert fp32 == m * 9 * hidden + 2 * m * hidden
+    assert tensor == 2 * m * hidden * hidden * (depth - 1)

@@ -13,6 +13,15 @@ replicas, with and without l2, are held to the JAX package's ``fit`` (CPU
 backend, JAX's permutations injected) and to each other at
 ``tests/test_torch_train.py``'s and ``tests/test_torch_dp_train.py``'s atol
 5e-3 (adam turns near-zero gradients into lr-sized steps of either sign).
+
+K5's plain version with the step's jobs (the gradient zeroed, the updated
+hidden weights cast, batch ``(steps + 1) % n_batches`` staged) is held bit
+for bit to the plain K5 followed by K9's plain version at the advanced
+count, for every head shape, views 0-3 elements off and counts near a
+multiple of the epoch's batches; a 3-epoch CPU fit with K9 once an epoch
+and the jobs in K5 bit for bit to the same fit with K9 at the head of
+every step, and the same fit without the epochs' K9 (a planted fault)
+differs.
 """
 import os
 import re
@@ -44,6 +53,14 @@ def prologue_case(hidden, depth, rows=40, offset=1, seed=0):
     larger one (every view unaligned for odd offsets), the epoch buffers
     of N_BATCHES batches of ``rows`` rows, a gradient buffer of random
     values, and the bf16 buffers of the hidden weights."""
+    head, _flat, weights, epoch, grad = flat_case(hidden, depth, rows,
+                                                  offset, seed)
+    return head, weights, epoch, grad
+
+
+def flat_case(hidden, depth, rows=40, offset=1, seed=0):
+    """:func:`prologue_case` with the parameter buffer the hidden weights
+    are views of: ``(head, flat, weights, epoch, grad)``."""
     rng = np.random.default_rng(seed)
     head = TrainableHead.from_params(init_params(K, hidden=hidden,
                                                  depth=depth, seed=seed))
@@ -63,7 +80,7 @@ def prologue_case(hidden, depth, rows=40, offset=1, seed=0):
              torch.from_numpy((rng.random((N_BATCHES, rows)) < 0.9).astype(
                  np.float32))]
     grad = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    return head, weights, epoch, grad
+    return head, flat, weights, epoch, grad
 
 
 @pytest.mark.parametrize("steps", [0, N_BATCHES - 1, N_BATCHES + 1,
@@ -143,17 +160,26 @@ def test_prologue_checks_its_arguments():
                          torch.empty(4, device="meta"), casts)
 
 
+def job_limits(name: str) -> dict:
+    """The ``constexpr int`` limits a file of csrc defines."""
+    with open(os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc", name)) as fh:
+        return dict(re.findall(r"constexpr int (k\w+) = (\d+);", fh.read()))
+
+
 def test_prologue_limits_are_the_kernels():
-    """MAX_COPIES and MAX_CASTS are csrc/step.cu's kMaxCopies and
-    kMaxCasts, and its C entry point is bound with its signature."""
+    """MAX_COPIES and MAX_CASTS are the kMaxCopies and kMaxCasts of the
+    jobs header csrc/step.cu takes them from, and its C entry point is
+    bound with its signature."""
     from vcf2prot_tpu_torch.runtime.build import SIGNATURES
     from vcf2prot_tpu_torch.utils import kernel_ab
 
     with open(CU) as fh:
         text = fh.read()
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    consts = job_limits("step_jobs.cuh")
     assert int(consts["kMaxCopies"]) == st.MAX_COPIES
     assert int(consts["kMaxCasts"]) == st.MAX_CASTS
+    assert "using step_jobs::kMaxCopies;" in text
+    assert "using step_jobs::kMaxCasts;" in text
     assert 'extern "C" int v2p_step_prologue(' in text
     assert len(SIGNATURES["v2p_step_prologue"]) == 9
     assert st.step_prologue in train.STEP_KERNELS
@@ -314,3 +340,261 @@ def test_dp_fit_through_the_prologue_matches_one_device(l2):
     assert list(dp) == list(one)
     for k in one:
         np.testing.assert_allclose(dp[k], one[k], rtol=0, atol=5e-3)
+
+
+# ---- K5 with the step's jobs (the per-step share of K9 in K5)
+
+# the step counts a jobs case runs at: the first, the last batch of the
+# first epoch (its next batch wraps to 0), the first of the next epoch,
+# and the last batch of a later one
+JOB_STEPS = (0, N_BATCHES - 1, N_BATCHES, 4 * N_BATCHES - 1)
+
+
+# the prologue's heads and one whose last hidden weight starts 2 elements
+# into a group of 4 of the parameter buffer (K5's casts then take groups
+# across a weight's edge element by element)
+JOB_HEADS = {**PROLOGUE_HEADS, "12-10-6": ((12, 10, 6), 0)}
+
+
+@pytest.mark.parametrize("steps", JOB_STEPS)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("head_name", list(JOB_HEADS))
+def test_adam_jobs_are_k5_then_the_prologue_at_the_next_step(head_name,
+                                                             offset, steps):
+    """K5's plain version with the step's jobs (through the wrapper, as a
+    fit calls it) is bit-equal to the plain K5 with its tail followed by
+    K9's plain version at the advanced count: the gradient zeroed, the
+    updated hidden weights cast, batch (steps + 1) % n_batches staged;
+    every head shape, views 0-3 elements past alignment, counts near a
+    multiple of n_batches."""
+    hidden, depth = JOB_HEADS[head_name]
+    outs = []
+    for jobs in (True, False):
+        head, p, weights, epoch, grad = flat_case(hidden, depth,
+                                                  offset=offset, seed=4)
+        n = p.numel()
+        rng = np.random.default_rng(5)
+        mu = torch.from_numpy((rng.standard_normal(n) * 1e-2).astype(
+            np.float32))
+        nu = torch.from_numpy(np.abs(rng.standard_normal(n) * 1e-2).astype(
+            np.float32))
+        g = grad * 1e-3
+        count = torch.tensor([6, 0], dtype=torch.int32)
+        losses = torch.full((5,), -1.0)
+        s = torch.tensor(steps, dtype=torch.int64)
+        loss = torch.tensor(0.25)
+        batch = [torch.full(t.shape[1:], 7, dtype=t.dtype) for t in epoch]
+        casts = [(w, torch.full(w.shape, 3.0, dtype=torch.bfloat16))
+                 for w in weights]
+        if jobs:
+            ad.adam_update(p, g, mu, nu, count, 1e-3, loss=loss,
+                           losses=losses, steps=s, epoch=epoch, batch=batch,
+                           casts=casts)
+        else:
+            ad.adam_update_reference(p, g, mu, nu, count, 1e-3, loss, losses,
+                                     s)
+            assert int(s) == steps + 1
+            st.step_prologue_reference(s, epoch, batch, g, casts)
+        outs.append([p, g, mu, nu, count, losses, s, *batch,
+                     *(c.view(torch.int16) for _w, c in casts)])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    got = outs[0]
+    assert not got[1].any() and not got[1].signbit().any()
+    b = (steps + 1) % N_BATCHES
+    assert all(torch.equal(x, t[b]) for x, t in zip(got[7:10], epoch))
+    assert int(got[6]) == steps + 1 and float(got[5][steps % 5]) == 0.25
+
+
+def fit_arrays(n, batch, seed):
+    win, labels = toy_task(n=n, seed=seed)
+    n_batches = -(-n // batch)
+    padded = n_batches * batch
+    arrays = [np.zeros((padded, K), np.uint8), np.zeros(padded, np.float32),
+              np.zeros(padded, np.float32)]
+    arrays[0][:n], arrays[1][:n], arrays[2][:n] = win, labels, 1.0
+    return arrays, n_batches, padded
+
+
+def cpu_fit(shape, every_step, epochs=3, n=700, batch=256, l2=0.0):
+    """A CPU fit through ``train._trainer`` and ``_epoch_loop``: its
+    trained parameters and losses."""
+    arrays, n_batches, padded = fit_arrays(n, batch, seed=12)
+    replicas, losses, fill, run = train._trainer(
+        arrays, init_params(K, seed=1, **shape), (CPU,), batch, 1e-3, True,
+        l2, epochs * n_batches, True, every_step)
+    train._epoch_loop(train._epoch_orders(3, padded, epochs, CPU), fill, run,
+                      n_batches)
+    return replicas[0].flat.clone(), losses.clone()
+
+
+FIT_SHAPES = {"16x1": dict(hidden=16, depth=1), "16x3": dict(hidden=16,
+                                                              depth=3)}
+
+
+@pytest.mark.parametrize("l2", [0.0, 1e-3])
+@pytest.mark.parametrize("shape", list(FIT_SHAPES))
+def test_fit_with_the_jobs_in_k5_equals_k9_every_step(shape, l2):
+    """Three epochs of three batches: the fit with K9 once an epoch and
+    the step's jobs in K5 is bit-equal (weights and every step's loss) to
+    the same fit with K9 at the head of every step (the arrangement before
+    the jobs)."""
+    got = cpu_fit(FIT_SHAPES[shape], False, l2=l2)
+    want = cpu_fit(FIT_SHAPES[shape], True, l2=l2)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert bool((got[1] > 0).all())
+
+
+@pytest.mark.parametrize("shape", list(FIT_SHAPES))
+def test_fit_without_the_epochs_prologue_differs(shape, monkeypatch):
+    """A planted fault: with K9 run only at the first epoch's fill, each
+    later epoch's first step trains on the batch the epoch before's last
+    K5 staged from the old buffers, and the fit differs from the sound
+    one (its first epoch's losses do not)."""
+    sound = cpu_fit(FIT_SHAPES[shape], False)
+    real, calls = train.step_prologue, []
+
+    def first_fill_only(*args):
+        calls.append(1)
+        if len(calls) == 1:
+            real(*args)
+
+    monkeypatch.setattr(train, "step_prologue", first_fill_only)
+    faulty = cpu_fit(FIT_SHAPES[shape], False)
+    assert len(calls) == 3
+    n_batches = 3
+    assert torch.equal(faulty[1][:n_batches], sound[1][:n_batches])
+    assert not torch.equal(faulty[1], sound[1])
+    assert not torch.equal(faulty[0], sound[0])
+
+
+def test_the_prologue_runs_once_an_epoch_or_every_step(monkeypatch):
+    """A single-device fit calls K9's wrapper once an epoch (its fills),
+    the same fit asked for it every step and a dp fit once a step on each
+    replica; a mesh refuses the step's jobs."""
+    real, calls = train.step_prologue, []
+
+    def counted(*args):
+        calls.append(args[3].device)
+        real(*args)
+
+    monkeypatch.setattr(train, "step_prologue", counted)
+    epochs, n_batches = 3, 3
+    cpu_fit(FIT_SHAPES["16x3"], False, epochs=epochs)
+    assert len(calls) == epochs
+    calls.clear()
+    cpu_fit(FIT_SHAPES["16x3"], True, epochs=epochs)
+    assert len(calls) == epochs * n_batches
+    calls.clear()
+    win, labels = toy_task(n=700, seed=6)
+    fit(win, labels, mesh=(CPU, CPU), epochs=2, batch_size=256, seed=4,
+        params=init_params(K, seed=3, hidden=16, depth=3))
+    assert len(calls) == 2 * 2 * n_batches
+    with pytest.raises(ValueError, match="every step"):
+        head = TrainableHead.from_params(init_params(K, seed=0))
+        train._step_fn([head, head], None, [[], []], [[], []], [[], []],
+                       None, None, None, True, 0.0, False)
+
+
+def test_adam_jobs_check_their_arguments():
+    _head, p, weights, epoch, grad = flat_case(24, 3, offset=0)
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    count = torch.zeros(2, dtype=torch.int32)
+    tail = dict(loss=torch.tensor(1.0), losses=torch.zeros(4),
+                steps=torch.zeros((), dtype=torch.int64))
+    batch = [torch.empty(t.shape[1:], dtype=t.dtype) for t in epoch]
+    casts = [(w, torch.empty(w.shape, dtype=torch.bfloat16))
+             for w in weights]
+    g = grad.clone()
+    with pytest.raises(TypeError, match="need the step's tail"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3, epoch=epoch, batch=batch)
+    with pytest.raises(TypeError, match="need the step's tail"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3, casts=casts)
+    with pytest.raises(ValueError, match="same 1 to"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3, epoch=epoch,
+                       batch=batch[:2], **tail)
+    with pytest.raises(TypeError, match=r"batch\[0\]"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3, epoch=epoch,
+                       batch=[batch[0].float(), *batch[1:]], **tail)
+    with pytest.raises(ValueError, match="view of p"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3,
+                       casts=[(weights[0].clone(), casts[0][1])], **tail)
+    with pytest.raises(ValueError, match="view of p"):
+        ad.adam_update(p[1:], g[1:], mu[1:], nu[1:], count, 1e-3,
+                       casts=[(p[:4], casts[0][1].view(-1)[:4])], **tail)
+    with pytest.raises(ValueError, match="overlap"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3,
+                       casts=[(p[0:8], casts[0][1].view(-1)[:8]),
+                              (p[4:12], casts[1][1].view(-1)[:8])], **tail)
+    with pytest.raises(TypeError, match=r"casts\[0\]"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3,
+                       casts=[(weights[0], casts[0][1].float())], **tail)
+    with pytest.raises(ValueError, match="hidden weights"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3,
+                       casts=casts[:1] * (st.MAX_CASTS + 1), **tail)
+    with pytest.raises(ValueError, match="p's device"):
+        ad.adam_update(p, g, mu, nu, count, 1e-3, epoch=epoch,
+                       batch=[torch.empty(b.shape, dtype=b.dtype,
+                                          device="meta") for b in batch],
+                       **tail)
+    # nothing moved: each refusal came before the update
+    assert int(count[0]) == 0 and torch.equal(g, grad)
+
+
+@pytest.mark.parametrize("jobs", ["copies", "casts", "both", "tail"])
+def test_adam_zeroes_the_gradient_with_any_job(jobs):
+    """Given any job (a batch to stage, a cast, both), K5 zeroes the
+    gradient once read; given its tail alone it leaves the gradient as it
+    was. The update is the same either way."""
+    outs = []
+    for given in (jobs, None):
+        _head, p, weights, epoch, grad = flat_case(24, 3, offset=1, seed=7)
+        mu = torch.zeros_like(p)
+        nu = torch.full_like(p, 1e-4)
+        g = grad * 1e-3
+        count = torch.tensor([2, 0], dtype=torch.int32)
+        tail = dict(loss=torch.tensor(0.5), losses=torch.zeros(3),
+                    steps=torch.tensor(1, dtype=torch.int64))
+        kw = {}
+        if given in ("copies", "both"):
+            kw.update(epoch=epoch, batch=[torch.empty(t.shape[1:],
+                                                      dtype=t.dtype)
+                                          for t in epoch])
+        if given in ("casts", "both"):
+            kw.update(casts=[(w, torch.empty(w.shape, dtype=torch.bfloat16))
+                             for w in weights])
+        before = g.clone()
+        ad.adam_update(p, g, mu, nu, count, 1e-3, **tail, **kw)
+        outs.append((p, mu, nu, count))
+        if given in (None, "tail"):
+            assert torch.equal(g, before)
+        else:
+            assert not g.any() and before.any()
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_adam_job_limits_are_the_kernels():
+    """csrc/adam.cu's kMaxCopies and kMaxCasts are K9's (one arrangement
+    or the other takes the same jobs): the jobs header defines them once
+    and both kernels include it, and v2p_adam_step is bound with its
+    signature."""
+    from vcf2prot_tpu_torch.runtime import build
+
+    with open(os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                           "adam.cu")) as fh:
+        text = fh.read()
+    for name in ("adam.cu", "step.cu"):
+        assert not {"kMaxCopies", "kMaxCasts"} & set(job_limits(name))
+    assert "using step_jobs::kMaxCopies;" in text
+    assert "using step_jobs::kMaxCasts;" in text
+    assert 'extern "C" int v2p_adam_step(' in text
+    assert len(build.SIGNATURES["v2p_adam_step"]) == 23
+    header = os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                          "step_jobs.cuh")
+    assert header in build.headers()
+    for name in ("adam.cu", "step.cu"):
+        with open(os.path.join(ROOT, "vcf2prot_tpu_torch", "csrc",
+                               name)) as fh:
+            assert '#include "step_jobs.cuh"' in fh.read()

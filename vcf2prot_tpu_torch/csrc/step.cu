@@ -1,4 +1,7 @@
 // K9: the prologue of the scoring head's training step, in one launch.
+// A single-device fit launches it once an epoch, after the epoch's rows are
+// gathered; each step's share of it is K5's step jobs (csrc/adam.cu). A
+// data-parallel fit launches it at the head of every step on each replica.
 //
 // Replaces the bookkeeping that XLA fused into the one jitted program of
 // vcf2prot_tpu/downstream/train.py::fit.fit_body (:133-178): lax.scan's
@@ -6,8 +9,8 @@
 // cotangents jax.value_and_grad starts from, and the hidden weights' bf16
 // casts (jnp.asarray(params[name], jnp.bfloat16), scoring.py:150). The port
 // keeps a fit's epoch in static buffers on the device and its step count
-// there too (downstream/train.py), so one launch at the head of each step
-// does all three, reading nothing from the host:
+// there too (downstream/train.py), so one launch does all three, reading
+// nothing from the host:
 //
 //   b = steps % n_batches              (steps: the device's int64 count)
 //   each copy (src, dst, bytes):  dst[0:bytes] = src[b*bytes : (b+1)*bytes]
@@ -46,24 +49,33 @@
 //
 // K9 is an ordinary launch: it neither waits on the kernel before it early
 // nor lets the kernel after it start early. K8's forward, which follows it
-// in a step, is a programmatic dependent (csrc/fold.cu) and waits for K9's
-// whole grid and its stores before any memory access; K3 after it reads
-// the batch K9 wrote.
+// (at an epoch's first step, and in each step of a data-parallel fit), is a
+// programmatic dependent (csrc/fold.cu) and waits for K9's whole grid and
+// its stores before any memory access; K3 after it reads the batch K9
+// wrote. Launched once an epoch, K9 stages batch 0 (the step count is then
+// a multiple of n_batches) over the batch the epoch before's last K5 staged
+// from the old buffers; its zero fill and casts repeat that K5's, and put
+// them right after a captured step's warm-up is undone.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "step_jobs.cuh"
+
 namespace {
 
+using step_jobs::batch_of;
+using step_jobs::bf16_bits;
+using step_jobs::copy_bytes;
+using step_jobs::kMaxCasts;
+using step_jobs::kMaxCopies;
+using step_jobs::kMaxJobBlocks;
+
 constexpr int kThreads = 256;
-// the batch tensors a step copies, the hidden weights a head casts, and the
-// blocks a job takes at most (it strides over them beyond)
-constexpr int kMaxCopies = 4;
-constexpr int kMaxCasts = 64;
+// every copy, every cast and the zero fill
 constexpr int kMaxJobs = kMaxCopies + kMaxCasts + 1;
-constexpr int64_t kMaxJobBlocks = 132 * 8;
 
 enum Kind : int { kCopy, kCast, kZero };
 
@@ -84,45 +96,6 @@ struct Args {
   Job job[kMaxJobs];
 };
 
-// [dst, dst + n) as a head of bytes up to the first multiple of sizeof(Word),
-// whole words, then a tail of bytes; src lies at the same place in a word.
-// Thread t < head takes head byte t, thread W <= t < W + tail tail byte
-// t - W (the grid has at least 2 W threads).
-template <typename Word>
-__device__ __forceinline__ void copy_words(const char* src, char* dst,
-                                           int64_t n, int64_t t, int64_t nt) {
-  constexpr int64_t W = sizeof(Word);
-  int64_t head = (W - static_cast<int64_t>(
-                           reinterpret_cast<uintptr_t>(dst) & (W - 1))) &
-                 (W - 1);
-  if (head > n) head = n;
-  const int64_t words = (n - head) / W;
-  const int64_t tail0 = head + words * W;
-  const Word* s = reinterpret_cast<const Word*>(src + head);
-  Word* d = reinterpret_cast<Word*>(dst + head);
-  for (int64_t i = t; i < words; i += nt) d[i] = s[i];
-  if (t < head) {
-    dst[t] = src[t];
-  } else if (t >= W && t - W < n - tail0) {
-    dst[tail0 + t - W] = src[tail0 + t - W];
-  }
-}
-
-__device__ __forceinline__ void copy_bytes(const char* src, char* dst,
-                                           int64_t n, int64_t t, int64_t nt) {
-  const uintptr_t rel =
-      reinterpret_cast<uintptr_t>(src) ^ reinterpret_cast<uintptr_t>(dst);
-  if ((rel & 15) == 0) {
-    copy_words<int4>(src, dst, n, t, nt);
-  } else if ((rel & 7) == 0) {
-    copy_words<int2>(src, dst, n, t, nt);
-  } else if ((rel & 3) == 0) {
-    copy_words<int>(src, dst, n, t, nt);
-  } else {
-    copy_words<char>(src, dst, n, t, nt);
-  }
-}
-
 __device__ __forceinline__ void zero_bytes(char* p, int64_t n, int64_t t,
                                            int64_t nt) {
   int64_t head =
@@ -137,10 +110,6 @@ __device__ __forceinline__ void zero_bytes(char* p, int64_t n, int64_t t,
   } else if (t >= 16 && t - 16 < n - tail0) {
     p[tail0 + t - 16] = 0;
   }
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
 // dst[e] = bf16(src[e]) for e < n: groups of 4, a 16-byte load and an
@@ -190,9 +159,8 @@ __global__ void __launch_bounds__(kThreads)
     cast_bf16(reinterpret_cast<const float*>(job.src),
               reinterpret_cast<uint16_t*>(job.dst), job.n, t, nt);
   } else {
-    int64_t b = *a.steps % a.n_batches;
-    if (b < 0) b += a.n_batches;
-    copy_bytes(job.src + b * job.n, job.dst, job.n, t, nt);
+    copy_bytes(job.src + batch_of(*a.steps, a.n_batches) * job.n, job.dst,
+               job.n, t, nt);
   }
 }
 
@@ -220,9 +188,8 @@ extern "C" int v2p_step_prologue(const void* steps, int64_t n_batches,
   // blocks for one 16-byte item a thread (4 elements of a cast)
   const auto add = [&a](int kind, const void* src, void* dst, int64_t n,
                         int64_t items) {
-    int64_t blocks = (items + kThreads - 1) / kThreads;
-    if (blocks < 1) blocks = 1;
-    if (blocks > kMaxJobBlocks) blocks = kMaxJobBlocks;
+    const int64_t blocks = step_jobs::job_blocks(items, kThreads,
+                                                 kMaxJobBlocks);
     a.job[a.n_jobs] = Job{kind, static_cast<const char*>(src),
                           static_cast<char*>(dst), n};
     a.first_block[a.n_jobs + 1] =

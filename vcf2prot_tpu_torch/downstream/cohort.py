@@ -132,11 +132,28 @@ def write_reports_from_candidates(outdir, proband_names, progs, candidates,
     per sample, the top ``top`` rows by descending score, ties in
     collection order (haplotype 1 then 2, ascending position)."""
     head = as_head(params, k, device)
-    windows, sample_ids, haps, starts = candidates
-    scores = score_cohort(windows, head)
+    scores = score_cohort(candidates[0], head)
+    grouped, seg = rank_candidates(scores, candidates[1], len(proband_names))
+    return write_ranked_reports(outdir, proband_names, progs, candidates,
+                                scores, grouped, seg, top)
+
+
+def rank_candidates(scores: np.ndarray, sample_ids: np.ndarray,
+                    n_samples: int):
+    """``(grouped, seg)``: the candidates' order, by sample and then by
+    descending score (ties in collection order), and each sample's
+    ``[seg[i], seg[i + 1])`` of it."""
     grouped = np.lexsort((-scores, sample_ids))
-    seg = np.searchsorted(sample_ids[grouped],
-                          np.arange(len(proband_names) + 1))
+    seg = np.searchsorted(sample_ids[grouped], np.arange(n_samples + 1))
+    return grouped, seg
+
+
+def write_ranked_reports(outdir, proband_names, progs, candidates,
+                         scores: np.ndarray, grouped: np.ndarray,
+                         seg: np.ndarray, top: int) -> list:
+    """Each sample's TSV: its first ``top`` candidates in the order of
+    :func:`rank_candidates`."""
+    windows, _sample_ids, haps, starts = candidates
     paths = []
     for i, proband in enumerate(proband_names):
         path = os.path.join(outdir, f"{proband}.neoantigens.tsv")

@@ -6,8 +6,7 @@ which XLA fuses a step's bookkeeping into its work: ``lax.scan`` slices the
 step's batch out of the epoch's ``(wb, yb, mb)`` (``:167``),
 ``jax.value_and_grad`` starts from zeroed cotangents, and the hidden
 weights' bf16 casts (``scoring.py:150``) run inside the products' fusions.
-The port's step (``train._step_fn``) does all three in one launch at its
-head, :func:`step_prologue`:
+The port does all three in one launch, :func:`step_prologue`:
 
 - batch ``b = steps % n_batches`` (``steps`` the fit's int64 step count on
   the device) of each epoch buffer copied into a static batch tensor;
@@ -18,9 +17,16 @@ head, :func:`step_prologue`:
   take.
 
 Copies, a zero fill and those casts are exact, so the kernel is bit-equal
-to :func:`step_prologue_reference`, the torch ops it replaced. The loss's
-store and the count's advance after a step are K5's tail
-(:func:`~vcf2prot_tpu_torch.downstream.adam.adam_update`).
+to :func:`step_prologue_reference`, the torch ops it replaced.
+
+A single-device fit (``train._step_fn``) launches K9 once an epoch, after
+the epoch's rows are gathered: it stages the epoch's first batch. Each
+step's K5 (:func:`~vcf2prot_tpu_torch.downstream.adam.adam_update` with
+the step's jobs) then zeroes the gradient, writes the updated hidden
+weights' casts and stages the next batch, and its tail stores the loss and
+advances the count, so a step launches no K9. A data-parallel fit launches
+K9 at the head of every step on each replica, since its K5 runs on the
+first replica alone.
 """
 from __future__ import annotations
 
@@ -37,17 +43,14 @@ MAX_COPIES = 4
 MAX_CASTS = 64
 
 
-def _check(steps, epoch, batch, grad, casts) -> torch.device:
-    """The device of checked prologue arguments (module docstring)."""
-    if steps.dtype != torch.int64 or steps.numel() != 1:
-        raise TypeError("steps must be an int64 scalar tensor")
+def check_copies(epoch, batch) -> int:
+    """The batches of checked epoch buffers and batch tensors: 1 to
+    :data:`MAX_COPIES` contiguous ``epoch[i]`` ``[n_batches, ...]`` and as
+    many contiguous ``batch[i]`` of ``epoch[i][0]``'s shape and type."""
     if len(epoch) != len(batch) or not 1 <= len(epoch) <= MAX_COPIES:
         raise ValueError(f"epoch and batch must name the same 1 to "
                          f"{MAX_COPIES} tensors, got {len(epoch)} and "
                          f"{len(batch)}")
-    if len(casts) > MAX_CASTS:
-        raise ValueError(f"at most {MAX_CASTS} hidden weights, got "
-                         f"{len(casts)}")
     n_batches = epoch[0].shape[0] if epoch[0].dim() else 0
     for i, (src, dst) in enumerate(zip(epoch, batch)):
         if src.dim() < 1 or src.shape[0] != n_batches or n_batches < 1:
@@ -59,14 +62,39 @@ def _check(steps, epoch, batch, grad, casts) -> torch.device:
                             f"{list(src.shape[1:])} tensor, and epoch[{i}] "
                             f"contiguous, got {dst.dtype} "
                             f"{list(dst.shape)}")
-    if grad.dtype != torch.float32 or not grad.is_contiguous():
-        raise TypeError("grad must be a contiguous fp32 tensor")
+    return n_batches
+
+
+def check_casts(casts) -> None:
+    """At most :data:`MAX_CASTS` pairs of a contiguous fp32 tensor and a
+    contiguous bf16 one of its shape."""
+    if len(casts) > MAX_CASTS:
+        raise ValueError(f"at most {MAX_CASTS} hidden weights, got "
+                         f"{len(casts)}")
     for i, (w, out) in enumerate(casts):
         if (w.dtype != torch.float32 or out.dtype != torch.bfloat16
                 or w.shape != out.shape or not w.is_contiguous()
                 or not out.is_contiguous()):
             raise TypeError(f"casts[{i}] must be a contiguous fp32 tensor and "
                             f"a contiguous bf16 one of its shape")
+
+
+def copy_batch(steps, epoch, batch) -> None:
+    """``batch[i] = epoch[i][steps % n_batches]``, an ``index_select``
+    each (K9's and K5's copies, as torch ops)."""
+    b = torch.remainder(steps, epoch[0].shape[0]).view(1)
+    for src, dst in zip(epoch, batch):
+        torch.index_select(src, 0, b, out=dst.view(1, *dst.shape))
+
+
+def _check(steps, epoch, batch, grad, casts) -> torch.device:
+    """The device of checked prologue arguments (module docstring)."""
+    if steps.dtype != torch.int64 or steps.numel() != 1:
+        raise TypeError("steps must be an int64 scalar tensor")
+    check_copies(epoch, batch)
+    check_casts(casts)
+    if grad.dtype != torch.float32 or not grad.is_contiguous():
+        raise TypeError("grad must be a contiguous fp32 tensor")
     tensors = [steps, *epoch, *batch, grad, *(t for c in casts for t in c)]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -80,9 +108,7 @@ def step_prologue_reference(steps, epoch, batch, grad, casts=()) -> None:
     ``batch[i] = epoch[i][b]`` (an ``index_select`` each), ``grad`` zeroed,
     then ``out = bf16(w)`` for each ``(w, out)`` of ``casts``: the torch
     ops the step ran before K9."""
-    b = torch.remainder(steps, epoch[0].shape[0]).view(1)
-    for src, dst in zip(epoch, batch):
-        torch.index_select(src, 0, b, out=dst.view(1, *dst.shape))
+    copy_batch(steps, epoch, batch)
     grad.zero_()
     for w, out in casts:
         out.copy_(w)

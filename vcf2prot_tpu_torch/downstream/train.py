@@ -25,16 +25,18 @@ nothing crossing the host link until the final fetch. Here the fit is
 device work with no host wait from the first step to the final fetch: the
 data is uploaded once (:func:`_trainer`); each epoch's permutation gathers
 the rows into static epoch buffers on the device (:func:`_epoch_loop`);
-one training step (K9, the step's prologue: the batch picked from those
-buffers by a step count on the device, the gradient buffer zeroed, the
-hidden weights cast to bf16; the forward and the loss, the backward
-through K8 and K3 (the fold and layer 1), K7 (the hidden layers after the
-first), K6 both ways (the output layer and the loss), K4 and K8's
-gradient, then K5, whose tail stores the loss and advances the count;
-:func:`_step_fn`) is captured in a CUDA graph and replayed once per batch
-(:class:`CapturedStep`), so a replay launches the step's kernels and no
-torch op; each step's loss lands in a device tensor, and the weights and
-losses are fetched once, at the end.
+K9 then stages the epoch's first batch (the batch picked from those
+buffers by a step count on the device), zeroes the gradient buffer and
+casts the hidden weights to bf16, once an epoch. One training step (the
+forward and the loss, the backward through K8 and K3 (the fold and layer
+1), K7 (the hidden layers after the first), K6 both ways (the output layer
+and the loss), K4 and K8's gradient, then K5, whose tail stores the loss
+and advances the count and whose jobs zero the gradient, cast the updated
+hidden weights and stage the next batch; :func:`_step_fn`) is captured in
+a CUDA graph and replayed once per batch (:class:`CapturedStep`), so a
+replay launches the step's kernels and no torch op; each step's loss
+lands in a device tensor, and the weights and losses are fetched once, at
+the end.
 On the CPU the same step runs eagerly, on the kernels' plain versions;
 ``capture=False`` runs it eagerly on the card, to hold the captured fit
 against it.
@@ -51,7 +53,8 @@ cotangent, hazard 11) are summed in shard order on the first device, adam
 (K5) steps there, and the weights are copied back to the other replicas.
 It runs the same step function and epoch loop as one device, eagerly
 (capturing it needs peer copies inside a capture), with no wait in a
-step: K9 on each replica's device, K5 and its tail on the first.
+step: K9 at the head of every step on each replica's device, K5 and its
+tail (no jobs) on the first.
 
     python -m vcf2prot_tpu_torch.downstream.train data.tsv out.npz \\
         [--epochs 30] [--lr 1e-3] [--batch 4096] [--seed 0] [--l2 0] \\
@@ -129,12 +132,14 @@ def train_step(replicas, opt, shards, binary: bool, l2: float = 0.0,
     for the device, so a single-device step can be captured.
 
     The gradients add into each replica's ``flat_grad``, which ``zero``
-    zeroes first; a fit's step passes False, its prologue (K9) having
-    zeroed them. ``hidden[i]``: replica ``i``'s hidden weights in bf16
-    (None: cast in the step). ``ones[i]``: an fp32 1 on replica ``i``'s
-    device that seeds its backward (None: autograd makes one). ``record``,
-    ``(losses, steps)``: ``opt`` (an :class:`Adam`) also stores the loss at
-    ``losses[steps % len(losses)]`` and advances ``steps``, K5's tail."""
+    zeroes first; a fit's step passes False, the step before's K5 or K9
+    having zeroed them. ``hidden[i]``: replica ``i``'s hidden weights in
+    bf16 (None: cast in the step). ``ones[i]``: an fp32 1 on replica
+    ``i``'s device that seeds its backward (None: autograd makes one).
+    ``record``, a dict of ``losses``, ``steps`` and, on one device, the
+    step's jobs (:func:`~vcf2prot_tpu_torch.downstream.adam.adam_update`):
+    ``opt`` (an :class:`Adam`) also stores the loss at ``losses[steps %
+    len(losses)]`` and advances ``steps``, K5's tail, and takes the jobs."""
     n = len(replicas)
     loss = None
     for i, (head, (w, y, m, count)) in enumerate(zip(replicas, shards)):
@@ -156,7 +161,7 @@ def train_step(replicas, opt, shards, binary: bool, l2: float = 0.0,
     if record is None:
         opt.step()
     else:
-        opt.step(loss, *record)
+        opt.step(loss, **record)
     with torch.no_grad():
         for head in replicas[1:]:
             head.flat.copy_(main.flat)
@@ -164,44 +169,60 @@ def train_step(replicas, opt, shards, binary: bool, l2: float = 0.0,
 
 
 def _step_fn(replicas, opt, epochs, batches, hidden, ones, losses, steps,
-             binary: bool, l2: float):
-    """One training step of a fit, on static tensors only. For each
-    replica, K9 (:func:`~vcf2prot_tpu_torch.downstream.step.step_prologue`)
-    copies batch ``steps % n_batches`` of its epoch buffers ``epochs[i]``
+             binary: bool, l2: float, every_step: bool):
+    """One training step of a fit, on static tensors only, and its
+    prologue: ``(step, prologue)``. ``prologue()`` launches K9
+    (:func:`~vcf2prot_tpu_torch.downstream.step.step_prologue`) on each
+    replica: batch ``steps % n_batches`` of its epoch buffers ``epochs[i]``
     (windows ``[n_batches, rows, k]``, labels, mask and, on a mesh, the
-    global batches' mask counts) into its static batch ``batches[i]``,
-    zeroes its gradient buffer and casts its hidden weights into
-    ``hidden[i]``; then :func:`train_step` (each backward seeded by
-    ``ones[i]``), whose K5 stores the loss at ``losses[steps %
-    len(losses)]`` and advances ``steps`` (a device int64). It reads
-    nothing back to the host, so a single-device step can be captured."""
+    global batches' mask counts) copied into its static batch
+    ``batches[i]``, its gradient buffer zeroed, its hidden weights cast
+    into ``hidden[i]``. ``step()`` runs :func:`train_step` (each backward
+    seeded by ``ones[i]``), whose K5 stores the loss at ``losses[steps %
+    len(losses)]`` and advances ``steps`` (a device int64). With
+    ``every_step`` (a mesh must take it: K5 runs on the first replica
+    alone) the step starts with ``prologue()``; without it, K5's jobs do
+    the prologue's work for the next step (batch ``(steps + 1) %
+    n_batches``), and the caller runs ``prologue()`` once an epoch, after
+    it refills the epoch buffers. ``step`` reads nothing back to the host,
+    so a single-device step can be captured."""
     casts = [[(getattr(head, n).detach(), w)
               for n, w in zip(head.names[1:-1], bf16)]
              for head, bf16 in zip(replicas, hidden)]
+    shards = [(*batch[:3], batch[3] if len(batch) > 3 else None)
+              for batch in batches]
+    record = dict(losses=losses, steps=steps)
+    if not every_step:
+        if len(replicas) > 1:
+            raise ValueError("a mesh's step needs the prologue every step")
+        record.update(epoch=epochs[0], batch=batches[0], casts=casts[0])
 
-    def step():
-        shards = []
+    def prologue():
         for head, epoch, batch, cast in zip(replicas, epochs, batches,
                                             casts):
             step_prologue(steps.to(head.flat.device), epoch, batch,
                           head.flat_grad, cast)
-            shards.append((*batch[:3], batch[3] if len(batch) > 3 else None))
-        train_step(replicas, opt, shards, binary, l2, zero=False,
-                   hidden=hidden, ones=ones, record=(losses, steps))
 
-    return step
+    def step():
+        if every_step:
+            prologue()
+        train_step(replicas, opt, shards, binary, l2, zero=False,
+                   hidden=hidden, ones=ones, record=record)
+
+    return step, prologue
 
 
 def _hidden_weights(head) -> list:
     """Views of one bf16 buffer, made once, for the bf16 casts of
     ``head``'s hidden weights (``names[1:-1]``), each starting a multiple
     of 16 bytes into it, so that every view is 16-byte aligned as K7's
-    Hopper path needs. K7's forward saves its view for the backward; a
-    view that the next step's prologue rewrites is right only because that
-    prologue runs after this step's backward."""
+    Hopper path needs; zeros until the fit's first K9. K7's forward saves
+    its view for the backward; the step's K5 (its casts) rewrites the view,
+    and that is right only because K5 runs after this step's backward, at
+    its end (with ``every_step``, K9 at the head of the next step)."""
     weights = [getattr(head, n) for n in head.names[1:-1]]
     offsets = np.cumsum([0] + [-(-w.numel() // 8) * 8 for w in weights])
-    buf = torch.empty(int(offsets[-1]), dtype=torch.bfloat16,
+    buf = torch.zeros(int(offsets[-1]), dtype=torch.bfloat16,
                       device=head.flat.device)
     return [buf[int(o):int(o) + w.numel()].view_as(w)
             for o, w in zip(offsets, weights)]
@@ -211,8 +232,10 @@ class CapturedStep:
     """A training step captured in one CUDA graph; calling it replays the
     graph. ``step`` runs CAPTURE_WARMUP times first on a side stream
     (torch.cuda.graphs' recipe: the allocator, cuBLAS and autograd set up
-    there), and ``state``, every tensor a step changes, is restored after
-    them, so that the captured fit equals the eager one. A capture launches
+    there), and ``state``, the tensors a step changes that no prologue
+    rewrites, is restored after them, so that the captured fit equals the
+    eager one once the fit's first K9 has staged the batch, zeroed the
+    gradient and cast the restored weights. A capture launches
     nothing and a replay launches every kernel captured, so each replay
     adds the captured launches to the counters of STEP_KERNELS. A failed
     capture or replay raises. The graph holds raw addresses of every tensor
@@ -251,7 +274,8 @@ class CapturedStep:
 
 
 def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
-             binary: bool, l2: float, n_losses: int, capture: bool):
+             binary: bool, l2: float, n_losses: int, capture: bool,
+             every_step: bool = False):
     """A fit's set-up: the padded rows ``arrays`` (u8 windows ``[P, k]``,
     fp32 labels and mask, ``P`` a multiple of ``batch_size``) uploaded
     once per distinct device, one replica of ``params`` a device, K5's
@@ -261,11 +285,14 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
     all made before any capture: a captured step holds their addresses.
     Returns ``(replicas, losses, fill, run)``: ``fill(order)`` gathers an
     epoch's rows in the order ``order`` (a device tensor) into the epoch
-    buffers, ``run()`` takes one step (:func:`_step_fn`), a replay of its
+    buffers and, on one device, launches K9 to stage the epoch's first
+    batch; ``run()`` takes one step (:func:`_step_fn`), a replay of its
     captured graph (:class:`CapturedStep`) on one CUDA device unless
-    ``capture`` is False. Nothing here waits for the device once set
-    up."""
+    ``capture`` is False. ``every_step`` (always on a mesh) runs K9 at the
+    head of every step instead, and K5 without the step's jobs. Nothing
+    here waits for the device once set up."""
     n_shards = len(devices)
+    every_step = every_step or n_shards > 1
     n_batches = arrays[0].shape[0] // batch_size
     rows = batch_size // n_shards
     replicas = [TrainableHead.from_params(params).to(d) for d in devices]
@@ -285,7 +312,7 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
     steps = torch.zeros((), dtype=torch.int64, device=dev)
     epochs = [bufs + ([] if counts is None else [counts[d]])
               for d, bufs in zip(devices, shard_bufs)]
-    batches = [[torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
+    batches = [[torch.zeros(t.shape[1:], dtype=t.dtype, device=t.device)
                 for t in epoch] for epoch in epochs]
     hidden = [_hidden_weights(head) for head in replicas]
     ones = [torch.ones((), dtype=torch.float32, device=d) for d in devices]
@@ -303,9 +330,11 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
             for d, c in counts.items():
                 if d != dev:
                     c.copy_(counts[dev])
+        if not every_step:
+            prologue()
 
-    run = _step_fn(replicas, opt, epochs, batches, hidden, ones, losses,
-                   steps, binary, l2)
+    run, prologue = _step_fn(replicas, opt, epochs, batches, hidden, ones,
+                             losses, steps, binary, l2, every_step)
     if n_shards == 1 and dev.type == "cuda" and capture:
         run = CapturedStep(run, opt.state() + [losses, steps])
     return replicas, losses, fill, run

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by nvcc, at first use and in parallel,
-and linked into ONE shared library with a plain C interface, which is
-loaded with ``ctypes`` (no PyTorch headers are compiled, so a build takes
-seconds, not minutes). The library is cached under
-``build/vcf2prot_tpu_torch/`` at the checkout root, named by a hash of the
-sources and the flags: an edited source always gets a new library, never a
-stale one (a modification-time check can load a stale build when clocks or
-checkouts disagree). A failed build raises with nvcc's output.
+Every ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it includes)
+is compiled by nvcc, at first use and in parallel, and linked into ONE
+shared library with a plain C interface, which is loaded with ``ctypes``
+(no PyTorch headers are compiled, so a build takes seconds, not minutes).
+The library is cached under ``build/vcf2prot_tpu_torch/`` at the checkout
+root, named by a hash of the sources, the headers and the flags: an edited
+source or header always gets a new library, never a stale one (a
+modification-time check can load a stale build when clocks or checkouts
+disagree). A failed build raises with nvcc's output.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without nvcc or a CUDA device.
@@ -60,7 +61,7 @@ SIGNATURES = {
                                    _P, _P, _P),
     "v2p_adam": (_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F, _P),
     "v2p_adam_step": (_P, _P, _P, _P, _P, _P, _I64, _F, _F, _F, _F, _F, _F,
-                      _P, _P, _I64, _P, _P),
+                      _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _P),
     "v2p_head_tail_fwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P, _P,
                           _P, _P, _P, _P),
     "v2p_head_tail_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P,
@@ -83,10 +84,16 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path() -> str:
-    """Cache path of the library for the current sources and flags."""
+    """Cache path of the library for the current sources, headers and
+    flags."""
     h = hashlib.sha256("\0".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for path in sources():
+    for path in sources() + headers():
         h.update(os.path.basename(path).encode() + b"\0")
         with open(path, "rb") as fh:
             h.update(fh.read())

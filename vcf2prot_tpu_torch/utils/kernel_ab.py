@@ -1,6 +1,7 @@
 """Compare versions of K1 (the executor), K2 (the validator), K5 (adam),
 K6 (the head's tail), K7 (the hidden layers) or K8 (the fold) on one card,
-or the training step with K9 against the same step without it.
+or the training step with K9's per-step work in K5 against the same step
+with K9 at its head.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
@@ -73,12 +74,12 @@ build and timing.
 ``k9`` takes no source: it builds the fit's captured training step
 (``downstream/train.py``'s ``_trainer``, one card, K9_BATCHES batches of
 4,096 rows of the synthetic MHC task) for the 128x1 and 512x3 heads twice,
-once as the port runs it (K9 at its head, K5 with the step's tail) and once
-with the torch ops those replaced (``step_prologue_reference``, autograd's
-own seed of the backward, then the loss stored and the count advanced by
-``remainder``, ``index_copy_`` and ``add_``: the step of commit ae9e290),
-holds the two bit for bit over K9_STEPS steps (weights, losses, count),
-then times one replay of each graph, A B B A.
+once as the port runs it (K5 with the step's tail and jobs: the gradient
+zeroed, the hidden weights cast, the next batch staged; K9 once an epoch)
+and once with K9 at the head of every step and K5 with its tail alone (the
+step of commit b19e873, ``_trainer(..., every_step=True)``), holds the two
+bit for bit over K9_STEPS steps (weights, losses), then times one replay
+of each graph, A B B A.
 """
 from __future__ import annotations
 
@@ -751,34 +752,11 @@ def ab_k8(paths, fns):
     return bad, out
 
 
-def _torch_step_fn(replicas, opt, epochs, batches, hidden, ones, losses,
-                   steps, binary: bool, l2: float):
-    """``train._step_fn`` as the step ran before K9 and K5's tail: the
-    same step on the same static tensors through the torch ops those
-    replaced (single device)."""
-    from ..downstream import train
-    from ..downstream.step import step_prologue_reference
-
-    (head,), (epoch,), (batch,), (bf16,) = replicas, epochs, batches, hidden
-    casts = [(getattr(head, n).detach(), w)
-             for n, w in zip(head.names[1:-1], bf16)]
-
-    def step():
-        step_prologue_reference(steps, epoch, batch, head.flat_grad, casts)
-        loss = train.train_step(replicas, opt, [(*batch, None)], binary, l2,
-                                zero=False, hidden=hidden)
-        at = torch.remainder(steps, losses.numel()).view(1)
-        losses.index_copy_(0, at, loss.view(1))
-        steps.add_(1)
-
-    return step
-
-
-def _k9_trainer(params, torch_ops: bool):
+def _k9_trainer(params, every_step: bool):
     """The fit's captured step (``train._trainer``) over K9_BATCHES
-    batches of the MHC task on the card, as the port runs it or
-    (``torch_ops``) as :func:`_torch_step_fn` does: ``(head, losses,
-    run)``."""
+    batches of the MHC task on the card, with K9 once an epoch and the
+    step's jobs in K5 or (``every_step``) K9 at the head of every step:
+    ``(head, losses, run)``."""
     import numpy as np
 
     from ..downstream import train
@@ -786,15 +764,10 @@ def _k9_trainer(params, torch_ops: bool):
 
     rows = K9_BATCHES * K9_ROWS
     win, labels, _truth, _n = mhc.split_task(rows)
-    real = train._step_fn
-    if torch_ops:
-        train._step_fn = _torch_step_fn
-    try:
-        replicas, losses, fill, run = train._trainer(
-            (win[:rows], labels[:rows], np.ones(rows, np.float32)), params,
-            (torch.device("cuda"),), K9_ROWS, 1e-3, True, 0.0, 5, True)
-    finally:
-        train._step_fn = real
+    replicas, losses, fill, run = train._trainer(
+        (win[:rows], labels[:rows], np.ones(rows, np.float32)), params,
+        (torch.device("cuda"),), K9_ROWS, 1e-3, True, 0.0, 5, True,
+        every_step)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
     fill(torch.randperm(rows, generator=gen, device="cuda"))
@@ -802,18 +775,18 @@ def _k9_trainer(params, torch_ops: bool):
 
 
 def ab_k9():
-    """The captured step with K9 and K5's tail against the same step with
-    the torch ops they replaced, at K9_HEADS: held bit for bit over
-    K9_STEPS steps, then one replay each timed A B B A. Prints a line a
-    head; returns ``(heads whose two steps disagreed, {head: {"k9":
-    [ms, ms], "torch": [ms, ms]}})``."""
+    """The captured step with the step's jobs in K5 (K9 once an epoch)
+    against the same step with K9 at its head (``every_step``), at
+    K9_HEADS: held bit for bit over K9_STEPS steps, then one replay each
+    timed A B B A. Prints a line a head; returns ``(heads whose two steps
+    disagreed, {head: {"k5": [ms, ms], "k9": [ms, ms]}})``."""
     from ..downstream.scoring import init_params
 
     bad, out = 0, {}
     for name, (hidden, depth) in K9_HEADS.items():
         params = init_params(9, seed=0, hidden=hidden, depth=depth)
-        sides = {side: _k9_trainer(params, side == "torch")
-                 for side in ("k9", "torch")}
+        sides = {side: _k9_trainer(params, side == "k9")
+                 for side in ("k5", "k9")}
         for _ in range(K9_STEPS):
             for _head, _losses, run in sides.values():
                 run()
@@ -822,14 +795,14 @@ def ab_k9():
         same = torch.equal(h1.flat, h2.flat) and torch.equal(l1, l2)
         bad += not same
         times = {side: [] for side in sides}
-        for side in ("k9", "torch", "torch", "k9"):
+        for side in ("k5", "k9", "k9", "k5"):
             times[side].append(median_ms(sides[side][2]))
         out[name] = times
         print(f"K9 {name} captured step ({K9_ROWS} rows, a replay, ms, A B "
-              f"B A): with K9 and K5's tail "
+              f"B A): the step's jobs in K5, K9 once an epoch "
+              + " / ".join(f"{t:.4f}" for t in times["k5"])
+              + "; K9 at the head of every step "
               + " / ".join(f"{t:.4f}" for t in times["k9"])
-              + "; with the torch ops they replaced "
-              + " / ".join(f"{t:.4f}" for t in times["torch"])
               + f"; weights and losses after {K9_STEPS} steps "
               + ("bit-equal" if same else "DIFFER"))
         del sides

@@ -153,6 +153,31 @@ def chain_stage_bytes(tape_bytes: int, n_tasks: int, index_bytes: int,
     }
 
 
+def cohort_score_costs(n_windows: int, params: dict) -> tuple:
+    """``(bytes, fp32 operations, bf16 tensor-core operations)`` of
+    scoring ``n_windows`` windows in one batch with the head ``params``
+    (``downstream/cohort.py::score_cohort``, the counterpart of the
+    reference's ``_jitted_scorer``): the u8 windows read and the fp32
+    scores written once, the folded bf16 table and the later layers' fp32
+    weights and biases read once; K3's k rows of H added a window, the hidden layers'
+    products on the tensor cores (K7) and the output product in fp32, 2
+    operations a multiply-add."""
+    from ..downstream.peptides import VOCAB
+    from ..downstream.scoring import layer_names
+
+    names = layer_names(params)
+    h1 = params[names[0]].shape[1]
+    k = params[names[0]].shape[0] // params["embed"].shape[1]
+    later = sum(int(np.size(params[n])) + int(np.size(params["b" + n[1:]]))
+                for n in names[1:])
+    n_bytes = n_windows * (k + 4) + k * VOCAB * h1 * 2 + h1 * 4 + 4 * later
+    tensor = sum(2 * n_windows * int(np.size(params[n]))
+                 for n in names[1:-1])
+    fp32 = scorer_ops(n_windows, k, h1) + 2 * n_windows * int(
+        np.size(params[names[-1]]))
+    return n_bytes, fp32, tensor
+
+
 def adam_bytes(n_params: int) -> int:
     """K5's: p, g, mu and nu read and p, mu and nu written, 4 bytes each:
     28 a parameter (the count's 8 bytes are left out)."""
@@ -285,14 +310,32 @@ def step_prologue_bytes(params: dict, rows: int) -> int:
     return 2 * rows * (k + 8) + 4 * n_params + 6 * hidden
 
 
+def adam_step_bytes(params: dict, rows: int) -> int:
+    """K5's compulsory bytes with the step's tail and jobs, at a step of
+    ``rows`` windows with the head ``params``: the update's
+    (:func:`adam_bytes`), the gradient zeroed (4 bytes a parameter
+    written), each hidden weight's bf16 cast written (2 bytes an element:
+    the updated parameter is in hand) and the next batch read from the
+    epoch buffers and written (the loss and the step count are left
+    out)."""
+    from ..downstream.scoring import layer_names
+
+    names = layer_names(params)
+    k = params[names[0]].shape[0] // params["embed"].shape[1]
+    n_params = sum(int(np.size(v)) for v in params.values())
+    hidden = sum(int(np.size(params[name])) for name in names[1:-1])
+    return adam_bytes(n_params) + 4 * n_params + 2 * hidden + 2 * rows * (
+        k + 8)
+
+
 def train_step_costs(params: dict, rows: int) -> dict:
     """``part -> (bytes, fp32 operations, bf16 tensor-core operations)`` of
     one training step of ``rows`` windows with the head ``params`` (int64
-    positions, each window's k bytes read once): K9 (the step's prologue:
-    the batch, the zeroed gradient, the hidden weights' casts), K8 (the
-    fold), K3, K7 (the
-    hidden layers after the first) and its gradients, the ``[H, 1]`` output
-    product and its gradient, K4, K8's gradient and K5. The output product
+    positions, each window's k bytes read once): K8 (the fold), K3, K7
+    (the hidden layers after the first) and its gradients, the ``[H, 1]``
+    output product and its gradient, K4, K8's gradient and K5 with the
+    step's jobs (the next batch, the zeroed gradient, the hidden weights'
+    casts; K9, once an epoch, is no part of a step). The output product
     reads its bf16-valued
     input (2 bytes an element) and its fp32 weight and writes its fp32
     result; its gradient reads the fp32 output gradient, the input and the
@@ -321,7 +364,6 @@ def train_step_costs(params: dict, rows: int) -> dict:
     w_bytes = n_in * n_out * 4
     e_dim = params["embed"].shape[1]
     return {
-        "K9": (step_prologue_bytes(params, rows), 0, 0),
         "K8": (fold_bytes(k, e_dim, h1, "forward"),
                fold_ops(k, e_dim, h1, "forward"), 0),
         "K3": (scorer_bytes(rows, h1, 8, rows * k, k * VOCAB * h1),
@@ -337,7 +379,7 @@ def train_step_costs(params: dict, rows: int) -> dict:
                scorer_ops(rows, k, h1), 0),
         "K8's gradient": (fold_bytes(k, e_dim, h1, "backward"),
                           fold_ops(k, e_dim, h1, "backward"), 0),
-        "K5": (adam_bytes(n_params), adam_ops(n_params), 0),
+        "K5": (adam_step_bytes(params, rows), adam_ops(n_params), 0),
     }
 
 
