@@ -942,9 +942,9 @@ def k3_shapes(card):
             odd = rng.integers(0, (tape_len - k) // 2, m) * 2 + 1
             for dt in (torch.int32, torch.int64):
                 pos = torch.from_numpy(odd).to(dt).to(DEV)
-                before = sc.window_layer1.launches
+                before = launches(sc.window_layer1)
                 got = sc.window_layer1(tape, pos, k, head.table, head.b1)
-                check(sc.window_layer1.launches == before + 1,
+                check(launches(sc.window_layer1) == before + 1,
                       f"K3 H={h} k={k} M={m} {dt}: K3 was not launched")
                 want = sc.window_layer1_reference(tape, pos, k, head.table,
                                                   head.b1)
@@ -1308,8 +1308,8 @@ def cold_child(module, *argv):
     from vcf2prot_tpu_torch.downstream.scoring import window_layer1
     from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
 
-    print(json.dumps({"rc": rc, "segmented_copy": segmented_copy.launches,
-                      "window_layer1": window_layer1.launches,
+    print(json.dumps({"rc": rc, "segmented_copy": launches(segmented_copy),
+                      "window_layer1": launches(window_layer1),
                       "wall_s": round(wall, 3)}), flush=True)
 
 
@@ -1486,21 +1486,18 @@ def phase_neo(card, workdir, vcf, fa, n_neo_chunks):
     of -g gpu and -g mt (the same scorer); returns the path's launches and
     wall, and leaves its reports in ``workdir/neo_chain``."""
     from vcf2prot_tpu_torch.downstream.compare import reports_disagree
-    from vcf2prot_tpu_torch.downstream.device_resident import (
-        candidate_positions,
-    )
     from vcf2prot_tpu_torch.downstream.scoring import window_layer1
     from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
 
     flags = ("--neoantigen_k", str(NEO_K), "--neoantigen_top", str(NEO_TOP))
     chain = os.path.join(workdir, "neo_chain")
-    segmented_copy.launches = window_layer1.launches = 0
-    candidate_positions.wait_s = 0.0
+    kernels = (segmented_copy, window_layer1)
+    start, waited = launch_counts(kernels=kernels), candidates_s()
     chain_s = _run_cli(vcf, fa, chain, "gpu", "--neoantigen_only", "-v",
                        *flags)
-    launches = {"segmented_copy": segmented_copy.launches,
-                "window_layer1": window_layer1.launches}
-    wait_s = candidate_positions.wait_s
+    launches = {f.__name__: n
+                for f, n in launch_counts(start, kernels).items()}
+    wait_s = candidates_s() - waited
     check(n_neo_chunks >= 5,
           f"main cohort has {n_neo_chunks} neo chunk(s), not >= 5")
     for name, n in launches.items():
@@ -1723,10 +1720,10 @@ def phase_k4(card):
         gen.manual_seed(k * 1000 + m)
         g = torch.randn(h1.shape, generator=gen,
                         device=DEV).to(torch.bfloat16)
-        before = sc.window_layer1_backward.launches
+        before = launches(sc.window_layer1_backward)
         got = sc.window_layer1_backward(tape, pos, k, h1, g)
         again = sc.window_layer1_backward(tape, pos, k, h1, g)
-        check(sc.window_layer1_backward.launches == before + 2,
+        check(launches(sc.window_layer1_backward) == before + 2,
               f"{what}: K4 was not launched")
         tiled = sc.window_layer1_backward_tiled_reference(tape, pos, k, h1, g)
         want = sc.window_layer1_backward_reference(tape, pos, k, h1, g)
@@ -1842,7 +1839,7 @@ def phase_k5(card):
                   for _ in range(2)]
         # a fresh cache: the first step misses it, the later ones hit it
         powers = torch.zeros(ad.POWERS, dtype=torch.int32, device=DEV)
-        before = ad.adam_update.launches
+        before = launches(ad.adam_update)
         for _ in range(K5_STEPS):
             g = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(
                 -6, 1, n)).astype(np.float32)).to(DEV)
@@ -1851,7 +1848,7 @@ def phase_k5(card):
             p, mu, nu = want
             ad.adam_update_reference(p, g, mu, nu, counts[1], lr)
         torch.cuda.synchronize()
-        check(ad.adam_update.launches == before + K5_STEPS,
+        check(launches(ad.adam_update) == before + K5_STEPS,
               f"K5 {what}: not launched")
         for name, a, b in zip(("p", "mu", "nu"), got, want):
             check(torch.equal(a, b), f"K5 {what}: {name} differs from the "
@@ -2759,10 +2756,10 @@ def phase_k9(card):
                                 gen)
                 params, epoch, batch, grad, casts, guards = (o[key] for key in (
                     "params", "epoch", "batch", "grad", "casts", "guards"))
-                before = st.step_prologue.launches
+                before = launches(st.step_prologue)
                 fn(steps, epoch, batch, grad, casts)
                 torch.cuda.synchronize()
-                check(st.step_prologue.launches
+                check(launches(st.step_prologue)
                       == before + (fn is st.step_prologue),
                       f"{what}: K9's launches not counted")
                 check(_guards_hold(guards), f"{what}, step {steps_v}: "
@@ -2863,10 +2860,10 @@ def phase_k9(card):
                 jobs = dict(epoch=o["epoch"], batch=o["batch"],
                             casts=o["casts"])
                 if kernel:
-                    before = ad.adam_update.launches
+                    before = launches(ad.adam_update)
                     ad.adam_update(*args, powers, *tail, **jobs)
                     torch.cuda.synchronize()
-                    check(ad.adam_update.launches == before + 1,
+                    check(launches(ad.adam_update) == before + 1,
                           f"{what}: K5's launch not counted")
                     check(int(count[1]) == 0, f"{what}, step {steps_v}: the "
                           f"block ticket is {int(count[1])} after a launch")
@@ -2985,20 +2982,51 @@ def phase_k9(card):
     return numbers, k5_numbers
 
 
+def launches(kernel) -> int:
+    """``kernel``'s launches in this process, the one count of them
+    (``train.launches``: a wrapper's own launches plus, for a kernel of
+    ``train.STEP_KERNELS``, each captured step's launches times its
+    replays). Counts are read as differences and never reset."""
+    from vcf2prot_tpu_torch.downstream import train
+
+    return train.launches(kernel)
+
+
+def launch_counts(since=None, kernels=None) -> dict:
+    """``{wrapper: launches}`` by :func:`launches`; with ``since`` (an
+    earlier result), the launches made after it; of ``kernels``, by
+    default the kernels a training step launches (``train.STEP_KERNELS``)."""
+    from vcf2prot_tpu_torch.downstream import train
+
+    now = {f: launches(f) for f in kernels or train.STEP_KERNELS}
+    return now if since is None else {f: n - since[f] for f, n in now.items()}
+
+
+def candidates_s() -> float:
+    """The host seconds the device-resident chain has waited for its
+    candidate counts in this process (the tracer's
+    ``v2p.chain.candidates`` spans, whether or not a profiler recorded)."""
+    from vcf2prot_tpu_torch.utils.timers import TRACER
+
+    return sum(TRACER.spans("v2p.chain.candidates", traced)[1]
+               for traced in (False, True))
+
+
 @contextlib.contextmanager
 def dense_counts(edge=False):
-    """K7's launch counts on its Hopper path from zero for the body, read
-    into the dict it yields when the body ends; with ``edge``, its edge
-    path's too (under ``"edge"``), else none may have run there: the
+    """K7's launches on its Hopper path in the body (:func:`launches`),
+    read into the dict it yields when the body ends; with ``edge``, its
+    edge path's too (under ``"edge"``), else none may have run there: the
     head's layers always take the Hopper path."""
     from vcf2prot_tpu_torch.downstream.dense import KERNELS
 
     counts = {}
-    for f in KERNELS:
-        f.launches = f.edge_launches = 0
+    start = launch_counts(kernels=KERNELS)
+    edge_start = {f: f.edge_launches for f in KERNELS}
     yield counts
-    counts.update({f.__name__: f.launches for f in KERNELS})
-    edges = {f.__name__: f.edge_launches for f in KERNELS}
+    counts.update({f.__name__: n
+                   for f, n in launch_counts(start, KERNELS).items()})
+    edges = {f.__name__: f.edge_launches - edge_start[f] for f in KERNELS}
     if edge:
         counts["edge"] = edges
     else:
@@ -3075,19 +3103,18 @@ def phase_train(card):
     # allocator's start-up
     train.fit(win[:MHC_BATCH], labels[:MHC_BATCH], epochs=1,
               batch_size=MHC_BATCH, device=DEV)
-    window_layer1.launches = window_layer1_backward.launches = 0
-    adam_update.launches = step_prologue.launches = 0
+    start = launch_counts()
     for f in DENSE_KERNELS:
-        f.launches = f.edge_launches = 0
+        f.edge_launches = 0
     aucs, trained, k6, k8 = {}, {}, {}, {}
     for name, shape in TRAIN_HEADS.items():
-        head_tail_forward.launches = head_tail_backward.launches = 0
-        fold_forward.launches = fold_backward.launches = 0
+        before = launch_counts()
         with epoch_loop_watch():
             trained[name], aucs[name], wall = mhc.train_config(
                 win, labels, n_tr, epochs=MHC_EPOCHS, device=DEV, **shape)
-        k6[name] = (head_tail_forward.launches, head_tail_backward.launches)
-        k8[name] = (fold_forward.launches, fold_backward.launches)
+        ran = launch_counts(before)
+        k6[name] = (ran[head_tail_forward], ran[head_tail_backward])
+        k8[name] = (ran[fold_forward], ran[fold_backward])
         # K6 and K8 once each way a step, on every head
         want = (steps + train.CAPTURE_WARMUP,) * 2
         check(k6[name] == want, f"{name}: K6 launched {k6[name]} times "
@@ -3103,15 +3130,11 @@ def phase_train(card):
         check(artifact[name] - 0.01 <= aucs[name] <= ceiling + 0.02,
               f"{name} holdout AUC {aucs[name]:.4f} outside "
               f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
-    launches = {"window_layer1": window_layer1.launches,
-                "window_layer1_backward": window_layer1_backward.launches,
-                "adam_update": adam_update.launches,
-                "step_prologue": step_prologue.launches,
-                "head_tail_forward": sum(f for f, _b in k6.values()),
-                "head_tail_backward": sum(b for _f, b in k6.values()),
-                **{f.__name__: f.launches for f in DENSE_KERNELS},
-                "fold_forward": sum(f for f, _b in k8.values()),
-                "fold_backward": sum(b for _f, b in k8.values())}
+    ran = launch_counts(start)
+    launches = {f.__name__: ran[f] for f in (
+        window_layer1, window_layer1_backward, adam_update, step_prologue,
+        head_tail_forward, head_tail_backward, *DENSE_KERNELS, fold_forward,
+        fold_backward)}
     print(f"K6 and K8 launches by head (forward, backward; {steps} steps "
           f"and {train.CAPTURE_WARMUP} warm-up steps a fit): K6 {k6}, K8 "
           f"{k8}")
@@ -3646,22 +3669,19 @@ def phase_sharded_neo(card, workdir, vcf, fa, n_chunks, shards, single_s):
     """14: --neoantigen_only over the repeated-card mesh against phase 6's
     single-device chain."""
     from vcf2prot_tpu_torch.downstream.compare import reports_disagree
-    from vcf2prot_tpu_torch.downstream.device_resident import (
-        candidate_positions,
-    )
     from vcf2prot_tpu_torch.downstream.scoring import window_layer1
     from vcf2prot_tpu_torch.runtime.gpu_engine import segmented_copy
 
     out = os.path.join(workdir, "neo_mesh")
     chain = os.path.join(workdir, "neo_chain")
-    segmented_copy.launches = window_layer1.launches = 0
-    candidate_positions.wait_s = 0.0
+    kernels = (segmented_copy, window_layer1)
+    start, waited = launch_counts(kernels=kernels), candidates_s()
     with repeated_card_mesh():
         wall = _run_cli(vcf, fa, out, "gpu", "--neoantigen_only", "-v",
                         "--neoantigen_k", str(NEO_K), "--neoantigen_top",
                         str(NEO_TOP))
-    launches = {"segmented_copy": segmented_copy.launches,
-                "window_layer1": window_layer1.launches}
+    launches = {f.__name__: n
+                for f, n in launch_counts(start, kernels).items()}
     check(launches["segmented_copy"] == shards > n_chunks,
           f"K1 launched {launches['segmented_copy']} times for {shards} "
           f"non-empty shards in {n_chunks} chunks")
@@ -3674,7 +3694,7 @@ def phase_sharded_neo(card, workdir, vcf, fa, n_chunks, shards, single_s):
     print(f"sharded neoantigen chain on {card} ({SCALING_NOTE}): "
           f"{len(os.listdir(out))} TSVs equal to the single-device chain "
           f"(rtol 1e-5 + atol 1e-6); --neoantigen_only over {MESH_SHARDS} "
-          f"shards {wall:.3f} s wall ({candidate_positions.wait_s:.3f} s of "
+          f"shards {wall:.3f} s wall ({candidates_s() - waited:.3f} s of "
           f"it waiting on candidate counts) against {single_s:.3f} s on one "
           f"device; launches {launches} for {shards} shards in {n_chunks} "
           f"chunks")
@@ -3749,10 +3769,7 @@ def phase_dp_train(card):
     ceiling = oracle_auc(truth[n_tr:], labels[n_tr:])
     artifact = mhc.read_aucs(MHC_ARTIFACT)
     steps = MHC_EPOCHS * -(-n_tr // MHC_BATCH)
-    window_layer1.launches = window_layer1_backward.launches = 0
-    adam_update.launches = step_prologue.launches = 0
-    head_tail_forward.launches = head_tail_backward.launches = 0
-    fold_forward.launches = fold_backward.launches = 0
+    start = launch_counts()
     for name in DP_HEADS:
         t0 = time.perf_counter()
         params = train.fit(
@@ -3772,14 +3789,11 @@ def phase_dp_train(card):
         check(artifact[name] - 0.01 <= auc <= ceiling + 0.02,
               f"dp {name} holdout AUC {auc:.4f} outside "
               f"[{artifact[name] - 0.01:.4f}, {ceiling + 0.02:.4f}]")
-    launches = {"window_layer1": window_layer1.launches,
-                "window_layer1_backward": window_layer1_backward.launches,
-                "adam_update": adam_update.launches,
-                "head_tail_forward": head_tail_forward.launches,
-                "head_tail_backward": head_tail_backward.launches,
-                "fold_forward": fold_forward.launches,
-                "fold_backward": fold_backward.launches,
-                "step_prologue": step_prologue.launches}
+    ran = launch_counts(start)
+    launches = {f.__name__: ran[f] for f in (
+        window_layer1, window_layer1_backward, adam_update,
+        head_tail_forward, head_tail_backward, fold_forward, fold_backward,
+        step_prologue)}
     check(all(launches.values()), f"a kernel of the dp fit never ran: "
                                   f"{launches}")
     # K9 on every replica a step, K5 on the first

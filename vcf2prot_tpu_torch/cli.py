@@ -72,7 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="DIR",
         help=(
             "write a torch.profiler trace of the execute stage to "
-            "DIR/trace.json"
+            "DIR/trace.json; with --neoantigen_only on -g gpu each "
+            "chunk's stages are host events in it (v2p.chain.plan, "
+            ".launch, .finish and its .candidates wait, .collect, .write)"
         ),
     )
     p.add_argument(

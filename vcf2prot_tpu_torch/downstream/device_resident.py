@@ -31,7 +31,6 @@ count); the reference's ``dispatch`` never waited.
 from __future__ import annotations
 
 import os
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -41,6 +40,7 @@ from ..pipeline import DEFAULT_NEO_CHUNK_RES_BYTES, _chunk_indices
 from ..runtime import cpu_engine
 from ..runtime.gpu_engine import GpuEngine, to_device
 from ..runtime.pack import pack_cohort
+from ..utils.timers import TRACER
 from .cohort import HEADER, as_head, collect_candidates, score_cohort
 from .report import _span_of
 from .scoring import layer_names
@@ -168,14 +168,9 @@ def candidate_mask(tape, dst, srcb, blob_len: int, ann_starts, ann_ends,
 def candidate_positions(cand) -> torch.Tensor:
     """Ascending int64 positions of the candidates (``torch.nonzero``).
     The count makes the host wait for the device: the chain's one sync per
-    chunk, whose host seconds add up in ``candidate_positions.wait_s``."""
-    t0 = time.perf_counter()
-    pos = torch.nonzero(cand).squeeze(1)
-    candidate_positions.wait_s += time.perf_counter() - t0
-    return pos
-
-
-candidate_positions.wait_s = 0.0
+    chunk, the span ``v2p.chain.candidates``."""
+    with TRACER.span("v2p.chain.candidates"):
+        return torch.nonzero(cand).squeeze(1)
 
 
 def rank_rows(tape, pos, scores, sample_starts, k: int, top: int):
@@ -243,7 +238,10 @@ class DeviceNeoantigenEngine:
     the rows of the cohort batch path. ``dispatch``/``collect`` split it
     so that a caller dispatches chunk N+1 before it fetches chunk N;
     ``dispatch`` itself is :meth:`plan`, :meth:`launch` and :meth:`finish`,
-    which the sharded chain calls shard by shard.
+    which the sharded chain calls shard by shard. Each of the four is a
+    span of the tracer (``v2p.chain.plan``, ``.launch``, ``.finish``,
+    ``.collect``; ``.finish`` holds ``.candidates``, the chunk's one
+    wait), which ``--profile``'s trace shows.
     ``device="cpu"`` runs every kernel's plain version.
     """
 
@@ -275,6 +273,10 @@ class DeviceNeoantigenEngine:
         """Pack and check one chunk on the host: a :class:`PlannedChunk`,
         or the ``"host"`` / ``"empty"`` :class:`ChunkHandle` of a chunk
         the card does not run."""
+        with TRACER.span("v2p.chain.plan"):
+            return self._plan(programs)
+
+    def _plan(self, programs):
         packed = pack_cohort(programs, self.blob)
         n_samples = len(programs) // 2
         host = ChunkHandle("host", n_samples)
@@ -299,22 +301,25 @@ class DeviceNeoantigenEngine:
     def launch(self, plan: PlannedChunk):
         """Upload a planned chunk and launch K1 and the candidate mask,
         without waiting for the device; returns ``(tape, cand)``."""
-        tape, dst, srcb = self.executor.launch(plan.packed)
-        ann_starts, ann_ends = (to_device(a, self.device) for a in plan.ann)
-        cand = candidate_mask(tape, dst, srcb, len(self.blob.data),
-                              ann_starts, ann_ends, self.k)
+        with TRACER.span("v2p.chain.launch"):
+            tape, dst, srcb = self.executor.launch(plan.packed)
+            ann_starts, ann_ends = (to_device(a, self.device)
+                                    for a in plan.ann)
+            cand = candidate_mask(tape, dst, srcb, len(self.blob.data),
+                                  ann_starts, ann_ends, self.k)
         return tape, cand
 
     def finish(self, plan: PlannedChunk, launched) -> ChunkHandle:
         """Compact (the one wait, for the candidate count), score and rank
         a launched chunk; its rows stay on the device."""
         tape, cand = launched
-        pos = candidate_positions(cand)
-        scores = self.head.score_positions(tape, pos)
-        rows = pack_rows(*rank_rows(
-            tape, pos, scores, to_device(plan.sample_starts, self.device),
-            self.k, self.top,
-        ))
+        with TRACER.span("v2p.chain.finish"):
+            pos = candidate_positions(cand)
+            scores = self.head.score_positions(tape, pos)
+            rows = pack_rows(*rank_rows(
+                tape, pos, scores, to_device(plan.sample_starts, self.device),
+                self.k, self.top,
+            ))
         return ChunkHandle("device", len(plan.sample_starts),
                            plan.sample_starts, plan.hap1_lens, rows)
 
@@ -325,13 +330,14 @@ class DeviceNeoantigenEngine:
             return None
         if handle.kind == "empty":
             return {i: [] for i in range(handle.n_samples)}
-        vals, gpos, wins = _unpack_rows(handle.packed.cpu().numpy())
-        return {
-            i: _decode_rows(vals[i], gpos[i], wins[i],
-                            int(handle.sample_starts[i]),
-                            int(handle.hap1_lens[i]))
-            for i in range(handle.n_samples)
-        }
+        with TRACER.span("v2p.chain.collect"):
+            vals, gpos, wins = _unpack_rows(handle.packed.cpu().numpy())
+            return {
+                i: _decode_rows(vals[i], gpos[i], wins[i],
+                                int(handle.sample_starts[i]),
+                                int(handle.hap1_lens[i]))
+                for i in range(handle.n_samples)
+            }
 
 
 def _host_chunk_rows(progs, blob, k, head, top):
@@ -359,7 +365,8 @@ def write_device_neoantigen_reports(
     the card take the host chain (:func:`_host_chunk_rows`). ``mesh`` (a
     tuple of ``torch.device``) runs the sharded chain
     (``parallel/sharded_neoantigen.py``) in place of ``device``; chunks
-    keep ``chunk_res_bytes``, as in the reference."""
+    keep ``chunk_res_bytes``, as in the reference. Each chunk's write is
+    the span ``v2p.chain.write``."""
     if mesh is not None:
         from ..parallel.sharded_neoantigen import ShardedNeoantigenEngine
 
@@ -372,22 +379,23 @@ def write_device_neoantigen_reports(
     def write_rows(chunk, progs, rows):
         if rows is None:
             rows = _host_chunk_rows(progs, blob, k, eng.head, top)
-        for local_i, sample_rows in rows.items():
-            sample_idx = chunk[2 * local_i] // 2
-            hap_pair = (programs[2 * sample_idx],
-                        programs[2 * sample_idx + 1])
-            path = os.path.join(
-                outdir, f"{proband_names[sample_idx]}.neoantigens.tsv"
-            )
-            with open(path, "w") as fh:
-                fh.write(HEADER)
-                for sc, hap, hpos, pep in sample_rows:
-                    name, span_start = _span_of(
-                        hap_pair[hap - 1].annotations, hpos
-                    )
-                    fh.write(f"{pep.decode('ascii')}\t{hap}\t{name}\t"
-                             f"{hpos - span_start}\t{sc:.6f}\n")
-            paths.append(path)
+        with TRACER.span("v2p.chain.write"):
+            for local_i, sample_rows in rows.items():
+                sample_idx = chunk[2 * local_i] // 2
+                hap_pair = (programs[2 * sample_idx],
+                            programs[2 * sample_idx + 1])
+                path = os.path.join(
+                    outdir, f"{proband_names[sample_idx]}.neoantigens.tsv"
+                )
+                with open(path, "w") as fh:
+                    fh.write(HEADER)
+                    for sc, hap, hpos, pep in sample_rows:
+                        name, span_start = _span_of(
+                            hap_pair[hap - 1].annotations, hpos
+                        )
+                        fh.write(f"{pep.decode('ascii')}\t{hap}\t{name}\t"
+                                 f"{hpos - span_start}\t{sc:.6f}\n")
+                paths.append(path)
 
     # dispatch chunk N+1 before fetching chunk N: the card works on N+1
     # while N's rows are fetched and written

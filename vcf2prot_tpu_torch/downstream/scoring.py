@@ -40,6 +40,7 @@ from torch import nn
 
 from ..runtime.build import check_launch, load_kernels
 from ..runtime.pack import pad_to_bucket
+from ..utils.timers import TRACER
 from .dense import DenseLayer
 from .fold import fold_backward, fold_forward
 from .head_tail import HeadTail
@@ -662,9 +663,12 @@ class TrainableHead(nn.Module):
 
     def to_params(self) -> dict:
         """The weight dictionary (fp32 numpy copies, ``load_params``'
-        keys and shapes)."""
-        return {name: p.detach().cpu().numpy().copy()
-                for name, p in self.named_parameters()}
+        keys and shapes): the span ``v2p.head.fetch``, with a device mark
+        before the copies (a fit's end on the device's clock)."""
+        with TRACER.span("v2p.head.fetch"):
+            TRACER.mark("v2p.head.fetch", self.flat.device)
+            return {name: p.detach().cpu().numpy().copy()
+                    for name, p in self.named_parameters()}
 
     def _layer1(self, windows) -> torch.Tensor:
         """bf16 ``[B, H1]`` of u8 windows ``[B, k]`` on the head's device:

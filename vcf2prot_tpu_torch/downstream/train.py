@@ -62,17 +62,26 @@ tail (no jobs) on the first.
         [--device cuda]
 
 reads ``peptide<TAB>label`` rows (no header, one peptide length), trains,
-writes the ``.npz`` and reports the holdout AUC (binary labels) or MSE.
+writes the ``.npz`` and reports the holdout AUC (binary labels) or MSE; it
+prints each epoch's mean loss and one line of the fit's seconds, its
+set-up's, epochs' and fetch's (host clock: the tracer's ``v2p.train.fit``,
+``v2p.train.trainer``, ``v2p.train.epochs`` and ``v2p.head.fetch``
+spans), the set-up split by
+the trainer's parts (``v2p.train.head``, ``.upload``, ``.buffers``, and on
+a CUDA device the captured step's ``.warmup`` and ``.capture``).
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import weakref
+from time import perf_counter_ns
 
 import numpy as np
 import torch
 
 from ..parallel.sharded import as_mesh, per_device
+from ..utils.timers import TRACER
 from .adam import Adam, adam_update
 from .dense import KERNELS as DENSE_KERNELS
 from .fold import KERNELS as FOLD_KERNELS
@@ -98,6 +107,22 @@ CAPTURE_WARMUP = 3
 STEP_KERNELS = (step_prologue, window_layer1, window_layer1_backward,
                 head_tail_forward, head_tail_backward, adam_update,
                 *DENSE_KERNELS, *FOLD_KERNELS)
+# the replays of every captured step, and their host nanoseconds
+REPLAYS = TRACER.counter("v2p.train.replays")
+# the captured steps alive (a freed one's replays are in the eager counts)
+_CAPTURED = weakref.WeakSet()
+
+
+def launches(kernel) -> int:
+    """The launches of ``kernel``, a wrapper: its own count of the
+    launches it made (``kernel.launches``) plus, for a kernel of
+    STEP_KERNELS, the launches each captured step's graph holds times its
+    replays."""
+    n = kernel.launches
+    if kernel in STEP_KERNELS:
+        i = STEP_KERNELS.index(kernel)
+        n += sum(step.launches[i] * step.replays for step in list(_CAPTURED))
+    return n
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -235,42 +260,57 @@ class CapturedStep:
     there), and ``state``, the tensors a step changes that no prologue
     rewrites, is restored after them, so that the captured fit equals the
     eager one once the fit's first K9 has staged the batch, zeroed the
-    gradient and cast the restored weights. A capture launches
-    nothing and a replay launches every kernel captured, so each replay
-    adds the captured launches to the counters of STEP_KERNELS. A failed
-    capture or replay raises. The graph holds raw addresses of every tensor
-    the step touches, so the object keeps ``step`` (and through its
-    closure those tensors: the head, the optimizer's state, the epoch
-    buffers, the step count) alive: freed, their memory would be handed to
-    later allocations that the replays then overwrite. What a step makes
-    (the activations and bf16 weights that K7's backward saves, its
-    scratch) comes from the graph's own memory pool, which lives as long
-    as the graph."""
+    gradient and cast the restored weights. A capture launches nothing and
+    a replay launches every kernel captured: ``launches`` holds the
+    launches of STEP_KERNELS the graph holds and ``replays`` counts the
+    replays (:func:`launches` reads both); a replay also adds one to
+    REPLAYS with its host nanoseconds, and nothing else. A failed capture
+    or replay raises. The graph holds raw addresses of every tensor the
+    step touches, so the object keeps ``step`` (and through its closure
+    those tensors: the head, the optimizer's state, the epoch buffers, the
+    step count) alive: freed, their memory would be handed to later
+    allocations that the replays then overwrite. What a step makes (the
+    activations and bf16 weights that K7's backward saves, its scratch)
+    comes from the graph's own memory pool, which lives as long as the
+    graph."""
 
     def __init__(self, step, state):
         self.step = step
-        saved = [t.clone() for t in state]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(CAPTURE_WARMUP):
+        self.replays = 0
+        with TRACER.span("v2p.train.warmup"):
+            saved = [t.clone() for t in state]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(CAPTURE_WARMUP):
+                    step()
+            torch.cuda.current_stream().wait_stream(side)
+        with TRACER.span("v2p.train.capture"):
+            before = [f.launches for f in STEP_KERNELS]
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
                 step()
-        torch.cuda.current_stream().wait_stream(side)
-        before = [f.launches for f in STEP_KERNELS]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            step()
-        self.launches = [f.launches - n for f, n in zip(STEP_KERNELS, before)]
-        for f, n in zip(STEP_KERNELS, before):
-            f.launches = n
-        with torch.no_grad():
-            for t, s in zip(state, saved):
-                t.copy_(s)
+            self.launches = [f.launches - n
+                             for f, n in zip(STEP_KERNELS, before)]
+            for f, n in zip(STEP_KERNELS, before):
+                f.launches = n
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+        _CAPTURED.add(self)
 
     def __call__(self) -> None:
+        t0 = perf_counter_ns()
         self.graph.replay()
-        for f, n in zip(STEP_KERNELS, self.launches):
-            f.launches += n
+        self.replays += 1
+        REPLAYS.n += 1
+        REPLAYS.ns += perf_counter_ns() - t0
+
+    def __del__(self, kernels=STEP_KERNELS):
+        # a freed step's replays stay in launches() (``kernels`` bound
+        # here: a step freed at exit outlives the module's globals)
+        for f, n in zip(kernels, getattr(self, "launches", ())):
+            f.launches += n * self.replays
 
 
 def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
@@ -290,53 +330,67 @@ def _trainer(arrays, params, devices, batch_size: int, learning_rate: float,
     captured graph (:class:`CapturedStep`) on one CUDA device unless
     ``capture`` is False. ``every_step`` (always on a mesh) runs K9 at the
     head of every step instead, and K5 without the step's jobs. Nothing
-    here waits for the device once set up."""
+    here waits for the device once set up. The set-up is the span
+    ``v2p.train.trainer``, its children ``v2p.train.head`` (the replicas
+    and K5's state), ``v2p.train.upload`` (the rows), ``v2p.train.buffers``
+    (the epoch and step buffers) and the captured step's
+    ``v2p.train.warmup`` and ``v2p.train.capture``; each ``fill`` is the
+    span ``v2p.train.fill``, with a device mark at its start."""
     n_shards = len(devices)
     every_step = every_step or n_shards > 1
     n_batches = arrays[0].shape[0] // batch_size
     rows = batch_size // n_shards
-    replicas = [TrainableHead.from_params(params).to(d) for d in devices]
-    opt = Adam(replicas[0], learning_rate)
-    data = dict(zip(devices, per_device(devices, lambda d: [
-        torch.from_numpy(a).to(d) for a in arrays])))
-    shard_bufs = [[torch.zeros((n_batches, rows, *a.shape[1:]),
-                               dtype=a.dtype, device=d) for a in data[d]]
-                  for d in devices]
     dev = devices[0]
-    # each global batch's mask count, on each device: whole numbers, exact
-    # in fp32
-    counts = (None if n_shards == 1 else
-              {d: torch.zeros(n_batches, dtype=torch.float32, device=d)
-               for d in data})
-    losses = torch.zeros(n_losses, dtype=torch.float32, device=dev)
-    steps = torch.zeros((), dtype=torch.int64, device=dev)
-    epochs = [bufs + ([] if counts is None else [counts[d]])
-              for d, bufs in zip(devices, shard_bufs)]
-    batches = [[torch.zeros(t.shape[1:], dtype=t.dtype, device=t.device)
-                for t in epoch] for epoch in epochs]
-    hidden = [_hidden_weights(head) for head in replicas]
-    ones = [torch.ones((), dtype=torch.float32, device=d) for d in devices]
+    with TRACER.span("v2p.train.trainer"):
+        with TRACER.span("v2p.train.head"):
+            replicas = [TrainableHead.from_params(params).to(d)
+                        for d in devices]
+            opt = Adam(replicas[0], learning_rate)
+        with TRACER.span("v2p.train.upload"):
+            data = dict(zip(devices, per_device(devices, lambda d: [
+                torch.from_numpy(a).to(d) for a in arrays])))
+        with TRACER.span("v2p.train.buffers"):
+            shard_bufs = [[torch.zeros((n_batches, rows, *a.shape[1:]),
+                                       dtype=a.dtype, device=d)
+                           for a in data[d]] for d in devices]
+            # each global batch's mask count, on each device: whole
+            # numbers, exact in fp32
+            counts = (None if n_shards == 1 else
+                      {d: torch.zeros(n_batches, dtype=torch.float32,
+                                      device=d) for d in data})
+            losses = torch.zeros(n_losses, dtype=torch.float32, device=dev)
+            steps = torch.zeros((), dtype=torch.int64, device=dev)
+            epochs = [bufs + ([] if counts is None else [counts[d]])
+                      for d, bufs in zip(devices, shard_bufs)]
+            batches = [[torch.zeros(t.shape[1:], dtype=t.dtype,
+                                    device=t.device) for t in epoch]
+                       for epoch in epochs]
+            hidden = [_hidden_weights(head) for head in replicas]
+            ones = [torch.ones((), dtype=torch.float32, device=d)
+                    for d in devices]
+        run, prologue = _step_fn(replicas, opt, epochs, batches, hidden,
+                                 ones, losses, steps, binary, l2, every_step)
+        if n_shards == 1 and dev.type == "cuda" and capture:
+            run = CapturedStep(run, opt.state() + [losses, steps])
 
     def fill(order):
-        by_shard = order.view(n_batches, n_shards, rows)
-        for i, (d, bufs) in enumerate(zip(devices, shard_bufs)):
-            idx = by_shard[:, i].reshape(-1).to(d)
-            for src, dst in zip(data[d], bufs):
-                torch.index_select(src, 0, idx,
-                                   out=dst.view(-1, *src.shape[1:]))
-        if counts is not None:
-            torch.sum(data[dev][2].index_select(0, order).view(
-                n_batches, -1), 1, out=counts[dev])
-            for d, c in counts.items():
-                if d != dev:
-                    c.copy_(counts[dev])
-        if not every_step:
-            prologue()
+        with TRACER.span("v2p.train.fill"):
+            TRACER.mark("v2p.train.fill", dev)
+            by_shard = order.view(n_batches, n_shards, rows)
+            for i, (d, bufs) in enumerate(zip(devices, shard_bufs)):
+                idx = by_shard[:, i].reshape(-1).to(d)
+                for src, dst in zip(data[d], bufs):
+                    torch.index_select(src, 0, idx,
+                                       out=dst.view(-1, *src.shape[1:]))
+            if counts is not None:
+                torch.sum(data[dev][2].index_select(0, order).view(
+                    n_batches, -1), 1, out=counts[dev])
+                for d, c in counts.items():
+                    if d != dev:
+                        c.copy_(counts[dev])
+            if not every_step:
+                prologue()
 
-    run, prologue = _step_fn(replicas, opt, epochs, batches, hidden, ones,
-                             losses, steps, binary, l2, every_step)
-    if n_shards == 1 and dev.type == "cuda" and capture:
-        run = CapturedStep(run, opt.state() + [losses, steps])
     return replicas, losses, fill, run
 
 
@@ -416,15 +470,24 @@ def fit(windows: np.ndarray, labels: np.ndarray, k: int = None,
     mask_p = np.zeros(padded, np.float32)
     mask_p[:n] = 1.0
 
-    replicas, losses, fill, run = _trainer(
-        (win_p, lab_p, mask_p), params, devices, batch_size, learning_rate,
-        binary, l2, epochs * n_batches, capture)
-    _epoch_loop(_epoch_orders(seed, padded, epochs, devices[0]), fill, run,
-                n_batches)
-    out = replicas[0].to_params()
+    with TRACER.span("v2p.train.fit") as whole:
+        replicas, losses, fill, run = _trainer(
+            (win_p, lab_p, mask_p), params, devices, batch_size,
+            learning_rate, binary, l2, epochs * n_batches, capture)
+        with TRACER.span("v2p.train.epochs") as loop:
+            _epoch_loop(_epoch_orders(seed, padded, epochs, devices[0]),
+                        fill, run, n_batches)
+        out = replicas[0].to_params()
     if verbose:
         for e, row in enumerate(losses.view(epochs, n_batches).cpu().numpy()):
             print(f"epoch {e + 1}/{epochs}: loss {row.mean():.5f}")
+        trainer = TRACER.last("v2p.train.trainer")
+        parts = ", ".join(f"{r.name.rsplit('.', 1)[1]} {r.seconds:.3f} s"
+                          for r in TRACER.children(trainer))
+        print(f"fit {whole.seconds:.3f} s: set-up {trainer.seconds:.3f} s "
+              f"({parts}), epochs {loop.seconds:.3f} s, fetch "
+              f"{TRACER.last('v2p.head.fetch').seconds:.3f} s (host clock: "
+              f"the epochs queue the card's work, the fetch waits for it)")
     return {name: out[name] for name in sorted(out)}
 
 

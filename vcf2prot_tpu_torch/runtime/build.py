@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 import threading
 
+from ..utils.timers import TRACER
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vcf2prot_tpu_torch")
@@ -162,18 +164,20 @@ def _build(out: str) -> None:
 
 def load_kernels() -> ctypes.CDLL:
     """The kernels' library, built on first use; declares every entry
-    point's argument and result types."""
+    point's argument and result types. The first call is the span
+    ``v2p.kernels.load`` (the build included when it runs)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            path = library_path()
-            if not os.path.exists(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            with TRACER.span("v2p.kernels.load"):
+                path = library_path()
+                if not os.path.exists(path):
+                    _build(path)
+                lib = ctypes.CDLL(path)
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
