@@ -25,11 +25,16 @@ failing the run with a non-zero exit:
    wrapper and by its plain version, K1 on the first 256 MiB and 128 MiB
    chunks beside a device-to-device ``copy_`` of the tape (its practical
    floor), K2 on the first 256 MiB chunk, beside their bounds; K3 bit-equal to its plain version (the same fp32 sums in the
-   same order) over H 8/100/128/512 x k 8/9/11/30 x M 1/127/4,096/524,287
-   and H 100/128 x k 692/3,121 (its table read from device memory) x M
-   127/4,096, x int32/int64 positions at odd byte offsets, and on the
-   candidate windows of a 128 MiB chunk for a 128x1 and a 512x3 head, timed
-   at the chain's block size (its launch alone, its wrapper with the
+   same order) over H 8/100/128/512 x k 8/9/11/30 x M
+   1/127/2,048/4,095/4,096/4,097/524,287 and the last M on the batch plan
+   and the next, and H 100/128 x k 692/3,121 (its table read from device
+   memory) x M 127/4,096, x int32/int64 positions at odd byte offsets and
+   misaligned views (the positions one element in, the table and biases
+   past alignment), each launch's batch-plan count checked against the
+   switch (found by bisection over launches), and on the candidate
+   windows of a 128 MiB chunk for a 128x1 and a 512x3 head (a full block
+   on the persistent plan, no batch-plan launch), timed at the chain's
+   block size (its launch alone, its wrapper with the
    bounds check, ``F.embedding_bag`` over the same rows as the
    yardstick, the plain version) beside its bound; the chain's stages
    timed on that chunk, and its products through a random 512x3 head (K7
@@ -188,7 +193,9 @@ failing the run with a non-zero exit:
    eager), none of the torch kernels K9 and K5's tail replaced
    (``REPLACED_BY_K9``), and in the eager loop no ``aten::bmm`` or
    ``aten::einsum``, no torch op run by an AccumulateGrad and no cast
-   (``aten::_to_copy``); the captured step with K5's jobs against the
+   (``aten::_to_copy``); K3's launches on its batch plan beside the step's
+   kernels: every K3 launch of a profiled fit, one a step (and a captured
+   fit's warm-up steps); the captured step with K5's jobs against the
    same step with K9 at its head, bit-equal, A B B A
    (``utils/kernel_ab.py``'s ``ab_k9``); then phase 9's fits captured and
    eager, A B B A, with bit-equal weights;
@@ -339,9 +346,12 @@ WINDOW_BYTES = b"ACDEFGHIKLMNPQRSTVWYX."
 DEV = "cuda"
 # calls a kernel timing spans back to back (phases 3 and 8)
 BACK_TO_BACK = 10
-# K3's shape coverage (phase 3): widths, window lengths and row counts
+# K3's shape coverage (phase 3): widths, window lengths and row counts (a
+# dp replica's batch, a training batch and the rows beside it, a serving
+# block); each width and length also runs the last row count that takes
+# the batch plan and the first that does not
 K3_WIDTHS, K3_KS, K3_ROWS = (8, 100, 128, 512), (8, 9, 11, 30), (
-    1, 127, 4096, 524287)
+    1, 127, 2048, 4095, 4096, 4097, 524287)
 # the sharded phases' mesh: the one card, named MESH_SHARDS times
 MESH_SHARDS = 2
 SCALING_NOTE = ("one card named twice: this checks the sharded code path "
@@ -917,48 +927,112 @@ def _bits_equal(a, b):
                                               b.view(torch.int16))
 
 
+def k3_last_batch_rows(tape, k, table, b1, dtype):
+    """The most windows K3 launches on its batch plan at k, the table's
+    width and positions of ``dtype``, found by bisection over launches
+    counted on ``window_layer1_batch`` (the plan does not depend on the
+    positions' values); 0 where none does (phase 3)."""
+    import torch
+
+    from vcf2prot_tpu_torch.downstream import scoring as sc
+
+    def batch(m):
+        pos = torch.zeros(m, dtype=dtype, device=DEV)
+        before = launches(sc.window_layer1_batch)
+        sc._launch_layer1(tape, pos, k, table, b1)
+        return launches(sc.window_layer1_batch) > before
+
+    lo, hi = 0, max(K3_ROWS)
+    check(not batch(hi), f"K3 k={k} H={table.shape[1]} {dtype}: {hi} "
+                         f"windows on the batch plan")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if batch(mid) else (lo, mid)
+    return lo
+
+
 def k3_shapes(card):
     """K3 bit-equal to its plain version over K3_WIDTHS x K3_KS x K3_ROWS
-    and H 100/128 x K3_LONG_KS x K3_LONG_ROWS, int32 and int64 positions,
-    windows at odd byte offsets of a tape of residues, 'X' and '.' (phase
-    3)."""
+    and the rows at each width and length where the batch plan gives way
+    to the persistent one, and H 100/128 x K3_LONG_KS x K3_LONG_ROWS, int32
+    and int64 positions and misaligned views (the positions one element
+    in, the table and biases 2 bytes past 16-byte alignment), windows at
+    odd byte offsets of a tape of residues, 'X' and '.'; each launch
+    counted on the batch plan up to the switch's row count and not past
+    it, and never for the long windows, whose table K3 reads from device
+    memory (phase 3)."""
     import numpy as np
     import torch
 
     from vcf2prot_tpu_torch.downstream import scoring as sc
 
-    rng = np.random.default_rng(13)
+    rng = np.random.default_rng(7)
     alphabet = np.frombuffer(WINDOW_BYTES, np.uint8)
     tape_len = 1 << 23
     tape = torch.from_numpy(
         alphabet[rng.integers(0, len(alphabet), tape_len)]).to(DEV)
-    shapes = [(h, k, K3_ROWS) for h in K3_WIDTHS for k in K3_KS]
-    shapes += [(h, k, K3_LONG_ROWS) for h in (100, 128) for k in K3_LONG_KS]
-    n = 0
-    for h, k, rows in shapes:
+    shapes = [(h, k, K3_ROWS, True) for h in K3_WIDTHS for k in K3_KS]
+    shapes += [(h, k, K3_LONG_ROWS, False) for h in (100, 128)
+               for k in K3_LONG_KS]
+    cases = ((torch.int32, False), (torch.int64, False), (torch.int64, True))
+    n, switches = 0, []
+    for h, k, rows, switch in shapes:
         head = sc.ScoringHead.from_params(
             sc.init_params(k, seed=h + k, hidden=h)).to(DEV)
+        # the last row count on the batch plan, by the positions' width
+        last = {size: k3_last_batch_rows(tape, k, head.table, head.b1, dt)
+                if switch else 0
+                for size, dt in ((4, torch.int32), (8, torch.int64))}
+        if switch:
+            rows = rows + tuple(sorted({m for size in (4, 8)
+                                        for m in (last[size],
+                                                  last[size] + 1) if m}))
+            switches.append(f"H {h} k {k}: {last[4]} / {last[8]}")
+        # the misaligned views: 2 bytes past the table's and the biases'
+        # alignment (K3 stages such a table element by element)
+        flat = torch.empty(head.table.numel() + 1, dtype=torch.bfloat16,
+                           device=DEV)
+        flat[1:] = head.table.flatten()
+        table = flat[1:].view(head.table.shape)
+        flat_b = torch.empty(h + 1, dtype=torch.float32, device=DEV)
+        flat_b[1:] = head.b1
+        b1 = flat_b[1:]
+        check(table.data_ptr() % 16 == 2 and b1.data_ptr() % 16 == 4,
+              f"K3 H={h} k={k}: the views are not misaligned")
         for m in rows:
-            odd = rng.integers(0, (tape_len - k) // 2, m) * 2 + 1
-            for dt in (torch.int32, torch.int64):
+            odd = rng.integers(0, (tape_len - k) // 2, m + 1) * 2 + 1
+            for dt, view in cases:
                 pos = torch.from_numpy(odd).to(dt).to(DEV)
-                before = launches(sc.window_layer1)
-                got = sc.window_layer1(tape, pos, k, head.table, head.b1)
-                check(launches(sc.window_layer1) == before + 1,
-                      f"K3 H={h} k={k} M={m} {dt}: K3 was not launched")
-                want = sc.window_layer1_reference(tape, pos, k, head.table,
-                                                  head.b1)
+                pos = pos[1:] if view else pos[:m]
+                batch = m <= last[pos.element_size()]
+                args = (tape, pos, k) + ((table, b1) if view else
+                                         (head.table, head.b1))
+                before = launch_counts(
+                    kernels=(sc.window_layer1, sc.window_layer1_batch))
+                got = sc.window_layer1(*args)
+                ran = launch_counts(before, (sc.window_layer1,
+                                             sc.window_layer1_batch))
+                what = f"K3 H={h} k={k} M={m} {dt}{' views' if view else ''}"
+                check(ran[sc.window_layer1] == 1,
+                      f"{what}: K3 was not launched")
+                check(ran[sc.window_layer1_batch] == batch,
+                      f"{what}: {ran[sc.window_layer1_batch]} batch-plan "
+                      f"launches, its batch plan ending at "
+                      f"{last[pos.element_size()]} rows")
+                want = sc.window_layer1_reference(*args)
                 torch.cuda.synchronize()
                 check(_bits_equal(got, want),
-                      f"K3 H={h} k={k} M={m} {dt} differs from its plain "
-                      f"version (max |d| "
+                      f"{what} differs from its plain version (max |d| "
                       f"{float((got.float() - want.float()).abs().max())})")
                 n += 1
-        del head, got, want
+        del head, got, want, table, b1, flat, flat_b
     torch.cuda.empty_cache()
     print(f"K3 vs plain on {card}: bit-equal at {n} shapes (H {K3_WIDTHS} x "
-          f"k {K3_KS} x M {K3_ROWS}, and H 100/128 x k {K3_LONG_KS} x M "
-          f"{K3_LONG_ROWS}, x int32/int64 positions at odd byte offsets)")
+          f"k {K3_KS} x M {K3_ROWS} and the last M on the batch plan and "
+          f"the next, and H 100/128 x k {K3_LONG_KS} x M {K3_LONG_ROWS}, x "
+          f"int32/int64 positions at odd byte offsets and misaligned views); "
+          f"the last M on the batch plan, int32 / int64 positions: "
+          + ", ".join(switches))
 
 
 def chain_wide_products(card, tape, pos):
@@ -1073,10 +1147,17 @@ def phase_k3(card, blob, flat):
                                       f"(max |d| {err})")
         del got, want
         args = (tape, p, NEO_K, head.table, head.b1)
+        counted = (sc.window_layer1, sc.window_layer1_batch)
+        before = launch_counts(kernels=counted)
         ms, _ = _cuda_ms(lambda: sc._launch_layer1(*args),
                          inner=BACK_TO_BACK)
         # one launch between two events, as earlier runs timed K3
         single, _ = _cuda_ms(lambda: sc._launch_layer1(*args))
+        ran = launch_counts(before, counted)
+        batch = ran[sc.window_layer1_batch]
+        check(batch == 0 or p.numel() < blk,
+              f"K3 {name}: {batch} of {ran[sc.window_layer1]} launches of "
+              f"a full block of {blk} windows on the batch plan")
         wrapper, _ = _cuda_ms(lambda: sc.window_layer1(*args),
                               inner=BACK_TO_BACK)
         plain, _ = _cuda_ms(lambda: sc.window_layer1_reference(*args),
@@ -1102,9 +1183,10 @@ def phase_k3(card, blob, flat):
             roofline.covered_bytes(p, NEO_K), head.table.numel())
         bound, by = roofline.bound_ms(
             n_bytes, roofline.scorer_ops(p.numel(), NEO_K, h_dim))
-        print(f"K3 {name} on {card}: {p.numel()} windows (block of {blk}): "
-              f"bit-equal to its plain version; launch {ms:.4f} ms back to "
-              f"back, {single:.4f} ms alone "
+        print(f"K3 {name} on {card}: {p.numel()} windows (block of {blk}, "
+              f"{batch} of {ran[sc.window_layer1]} launches on the batch "
+              f"plan): bit-equal to its plain version; launch {ms:.4f} ms "
+              f"back to back, {single:.4f} ms alone "
               f"({out_bytes / ms / 1e6:.1f} GB/s of {out_bytes} output "
               f"bytes; {100 * bound / ms:.1f}% of the {bound:.4f} ms bound "
               f"by {by}, {n_bytes} compulsory bytes), wrapper with its "
@@ -3379,12 +3461,22 @@ def phase_step_times(card, k4, k6, k7, k8):
               f"median {statistics.median(times['k5']):.4f} ms with the "
               f"step's jobs in K5, {statistics.median(times['k9']):.4f} ms "
               f"with K9 at its head")
+    from vcf2prot_tpu_torch.downstream.scoring import (
+        window_layer1,
+        window_layer1_batch,
+    )
+
     win, labels, _truth, n_tr = mhc.split_task(MHC_N)
     own = port_kernels()
+    counted = (window_layer1, window_layer1_batch)
     for name in CAPTURE_HEADS:
         shape = TRAIN_HEADS[name]
-        per = {mode: _fit_profile(win, labels, n_tr, shape, mode == "captured")
-               for mode in ("captured", "eager")}
+        per, k3 = {}, {}
+        for mode in ("captured", "eager"):
+            before = launch_counts(kernels=counted)
+            per[mode] = _fit_profile(win, labels, n_tr, shape,
+                                     mode == "captured")
+            k3[mode] = launch_counts(before, counted)
         print(f"{name} epoch loop on {card} (torch.profiler, 2 epochs, a "
               f"step: host calls that put work on a stream / device kernels "
               f"and copies / device busy ms): " + "; ".join(
@@ -3411,7 +3503,22 @@ def phase_step_times(card, k4, k6, k7, k8):
               f"with K9 in the step (commit b19e873, PERF.md section 5), by "
               f"name: " + "; ".join(f"{n:.2f} {key[:100]}" for key, n in
                                     sorted(per["captured"]["names"].items(),
-                                           key=lambda kv: -kv[1])))
+                                           key=lambda kv: -kv[1]))
+              + "; K3 on its batch plan a step (launches of the fit, "
+              "captured / eager): " + " / ".join(
+                  f"{k3[mode][window_layer1_batch] / v['steps']:.2f} "
+                  f"({k3[mode][window_layer1_batch]} of "
+                  f"{k3[mode][window_layer1]})" for mode, v in per.items()))
+        # every K3 launch of a fit on the batch plan: one a step, and a
+        # captured fit's warm-up steps
+        for mode, v in per.items():
+            want = v["steps"] + (train.CAPTURE_WARMUP
+                                 if mode == "captured" else 0)
+            check(k3[mode][window_layer1_batch] == k3[mode][window_layer1]
+                  == want, f"{name} {mode} fit: K3 launched "
+                  f"{k3[mode][window_layer1]} times, "
+                  f"{k3[mode][window_layer1_batch]} on the batch plan, not "
+                  f"{want} ({v['steps']} steps)")
         check(got < PARENT_STEP_KERNELS[name], f"{name}: {got:.2f} device "
               f"kernels a captured step, not fewer than "
               f"{PARENT_STEP_KERNELS[name]:.2f} with K9 in the step")

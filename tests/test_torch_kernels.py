@@ -159,6 +159,7 @@ def test_kernel_ab_without_sources_prints_its_usage(capsys):
     from vcf2prot_tpu_torch.utils import kernel_ab
 
     assert kernel_ab.main([]) == 2
-    assert kernel_ab.main(["k3", "a.vcf", "a.fa", "a.cu"]) == 2
+    # K4's A/B is utils/k4_ab.py: this script takes no k4
+    assert kernel_ab.main(["k4", "a.vcf", "a.fa", "a.cu"]) == 2
     err = capsys.readouterr().err
     assert "v2p_segmented_copy_i32" in err and "v2p_validate_i32" in err

@@ -23,14 +23,40 @@
 // Bound: the M*H*2 bytes of output (134 MB for 524,288 windows at H=128),
 // plus M*k window bytes and M positions; the table is 48 KB.
 //
-// Design:
-//  * a persistent grid: per column slice, at most (SMs x resident CTAs) /
-//    slices CTAs and never more than there are window tiles; each CTA
-//    stages its [k*21, hs] bf16 table slice (16-byte loads) and the lut
-//    ONCE, then strides over window tiles. hs is a power of two <= 256
-//    whose slice fits ~100 KB (two CTAs a SM at 512 columns), or 8 for
-//    long k; dynamic shared memory above 48 KB is opted in to once per
-//    device;
+// Design: two launch plans, one kernel. Both give every h1[m, h] the same
+// sum in the same order, so h1 does not depend on the plan.
+//  * the persistent plan: per column slice, at most (SMs x resident CTAs)
+//    / slices CTAs (the occupancy device_setup caches) and never more than
+//    there are window tiles; each CTA stages its [k*21, hs] bf16 table
+//    slice and the lut ONCE, then strides over tiles of up to 256
+//    windows. hs is a power of two <= 256 whose slice fits ~100 KB (two
+//    CTAs a SM at 512 columns), or 8 for long k; dynamic shared memory
+//    above 48 KB is opted in to once per device. The chain's blocks
+//    (131,072 and 524,288 windows) and score_cohort take it; on the H100
+//    it is bound by its shared-memory row loads and the stores (below),
+//    at ~50% of the bytes bound;
+//  * the batch plan, where the persistent plan's tiles x slices fill less
+//    than one wave of the card (SMs x resident CTAs; a training step's
+//    4,096 rows: 16 CTAs of 132 SMs at 128 columns; a dp replica's 2,048;
+//    few compacted candidates): one CTA a tile, slices of 16 columns
+//    widened until the CTAs fit one wave of kMinBlocks a SM, tiles of one
+//    window a thread doubled while every SM still gets one (4,096 rows:
+//    256 CTAs of 16 columns x 128 windows at H 128, of 32 x 256 at H 512).
+//    Each CTA is short, so its prologue is most of its time: the table
+//    slice is in flight (16-byte cp.async) while the lut is built, and
+//    each thread reads its windows' bytes itself (L1 hits) rather than
+//    staging row indices, which costs two barriers and a round trip
+//    through shared memory. On the H100 it is bound by latency: the
+//    launch (~1.3 us for an empty kernel on its grid, in a graph), the
+//    position -> window byte -> table row chain, the table's arrival and
+//    the stores. Where its threads would take as many windows each as the
+//    persistent plan's, or more than kBatchMaxWindows, the persistent
+//    plan's staged rows win, and it keeps the launch (k = 9: from 50,689
+//    rows at 128 columns, 12,545 at 512);
+//  * the table slice: a slice of whole rows (hs >= H) by a loop of
+//    16-byte loads; a narrower one by 16-byte cp.async, in flight while
+//    the lut and the first tile are prepared; a misaligned table element
+//    by element;
 //  * each tile's windows are translated once into table-row indices in
 //    shared memory ([tile, k] u16, double-buffered), so the window bytes
 //    and positions are read once, not once per column thread. The
@@ -38,7 +64,8 @@
 //    while tile t is summed, the bytes of tile t+1 (positions staged one
 //    iteration before) and the positions of tile t+2 are in flight; both
 //    land in shared memory after tile t's sums, before the one barrier a
-//    tile. Windows longer than kStageK read their bytes directly;
+//    tile (the persistent plan). Windows longer than kStageK read their
+//    bytes directly;
 //  * a thread owns 8 consecutive columns of one window: k 16-byte shared
 //    loads, 8 fp32 sums in i order, 8 biases held in registers for the
 //    whole run, ReLU, one rounding and one 16-byte streaming store (this
@@ -97,6 +124,11 @@ constexpr int kTileWindows = 256;
 constexpr int kRowBufEntries = 2560;
 constexpr int kMaxEntries = kRowBufEntries / kThreads;
 constexpr int kMaxDevices = 64;
+// the batch plan's narrowest column slice, and the most windows a thread
+// takes in it: past that its unstaged windows lose to the persistent
+// plan's staged ones on the H100
+constexpr int kBatchMinSlice = 16;
+constexpr int kBatchMaxWindows = 8;
 
 struct Plan {
   int hs;          // columns of a slice (power of two, 8..256)
@@ -145,6 +177,22 @@ __device__ __forceinline__ void load_bytes(const uint8_t* __restrict__ buf,
   }
 }
 
+// The same for tile t, its positions read from device memory: every entry
+// of a thread is of the same window (tile divides kThreads), so one
+// position a thread.
+template <typename Idx>
+__device__ __forceinline__ void load_first_bytes(
+    const uint8_t* __restrict__ buf, const Idx* __restrict__ pos, int64_t m,
+    int64_t t, int k, int tile, int tile_shift,
+    uint32_t (&bytes)[kMaxEntries]) {
+  const int64_t p = tile_pos(pos, m, t, tile, threadIdx.x & (tile - 1));
+#pragma unroll
+  for (int j = 0; j < kMaxEntries; ++j) {
+    const int i = (threadIdx.x + j * kThreads) >> tile_shift;
+    bytes[j] = i < k && p >= 0 ? buf[p + i] : 0;
+  }
+}
+
 // Their table-row indices (in uint4 units of a row of hs columns), into
 // rows ([tile, k_pad] u16).
 __device__ __forceinline__ void store_rows(
@@ -159,6 +207,18 @@ __device__ __forceinline__ void store_rows(
           static_cast<uint16_t>((i * kVocab + lut[bytes[j]]) * vecs);
     }
   }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously (L2 only)
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
 }
 
 template <typename Idx, int K>
@@ -187,36 +247,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int64_t t0 = blockIdx.x;
   const int64_t step = gridDim.x;
 
-  // the lut and the table slice, once per CTA
-  for (int c = tid; c < 256; c += blockDim.x) lut[c] = kVocab - 1;
-  if (vec_table) {
-    uint4* dst = reinterpret_cast<uint4*>(tab);
-    for (int e = tid; e < n_rows * vecs; e += blockDim.x) {
-      const int r = e / vecs;
-      const int col = c0 + (e - r * vecs) * 8;
-      dst[e] = col < h_dim
-                   ? *reinterpret_cast<const uint4*>(
-                         table + static_cast<int64_t>(r) * h_dim + col)
-                   : make_uint4(0, 0, 0, 0);
-    }
-  } else {
-    for (int e = tid; e < n_rows * hs; e += blockDim.x) {
-      const int r = e / hs;
-      const int col = c0 + (e - r * hs);
-      tab[e] = col < h_dim ? table[static_cast<int64_t>(r) * h_dim + col]
-                           : __float2bfloat16(0.0f);
-    }
-  }
-  if (stage && tid < tile) {
-    posbuf[tid] = tile_pos(pos, m, t0, tile, tid);
-    posbuf[tile + tid] = tile_pos(pos, m, t0 + step, tile, tid);
-  }
-  __syncthreads();
-  if (tid < kVocab - 1) {
-    const char alphabet[] = "ACDEFGHIKLMNPQRSTVWY";
-    lut[static_cast<uint8_t>(alphabet[tid])] = static_cast<uint8_t>(tid);
-  }
-
   // this thread's 8 columns and window slot, fixed for the whole run
   const int lane = tid % vecs;
   const int slot = tid / vecs;
@@ -227,12 +257,60 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int j = 0; j < 8; ++j) bias[j] = col + j < h_dim ? b1[col + j] : 0.0f;
   const uint4* tab_v = reinterpret_cast<const uint4*>(tab) + lane;
 
-  __syncthreads();  // the lut's residues, the first positions
+  // the table slice, once per CTA: whole 16-byte rows by a loop of
+  // loads, a narrower slice by cp.async, in flight while the lut and the
+  // first tile's row indices are made, else element by element (header)
+  const bool async_table = vec_table && hs < h_dim;
+  if (vec_table && !async_table) {
+    uint4* dst = reinterpret_cast<uint4*>(tab);
+    for (int e = tid; e < n_rows * vecs; e += blockDim.x) {
+      const int r = e / vecs;
+      const int c = c0 + (e - r * vecs) * 8;
+      dst[e] = c < h_dim ? *reinterpret_cast<const uint4*>(
+                               table + static_cast<int64_t>(r) * h_dim + c)
+                         : make_uint4(0, 0, 0, 0);
+    }
+  } else if (vec_table) {
+    uint4* dst = reinterpret_cast<uint4*>(tab);
+    const int vec_shift = __ffs(vecs) - 1;
+    for (int e = tid; e < n_rows * vecs; e += blockDim.x) {
+      const int r = e >> vec_shift;
+      const int c = c0 + (e & (vecs - 1)) * 8;
+      if (c < h_dim) {
+        copy16_async(dst + e, table + static_cast<int64_t>(r) * h_dim + c);
+      } else {
+        dst[e] = make_uint4(0, 0, 0, 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  } else {
+    for (int e = tid; e < n_rows * hs; e += blockDim.x) {
+      const int r = e / hs;
+      const int c = c0 + (e - r * hs);
+      tab[e] = c < h_dim ? table[static_cast<int64_t>(r) * h_dim + c]
+                         : __float2bfloat16(0.0f);
+    }
+  }
+  // the lut: each byte's residue index, 20 for anything else
+  for (int c = tid; c < 256; c += blockDim.x) {
+    const char alphabet[] = "ACDEFGHIKLMNPQRSTVWY";
+    uint8_t v = kVocab - 1;
+#pragma unroll
+    for (int a = 0; a < kVocab - 1; ++a) {
+      if (static_cast<uint8_t>(alphabet[a]) == c) v = static_cast<uint8_t>(a);
+    }
+    lut[c] = v;
+  }
+  // the first tile's window bytes straight from its positions, and the
+  // next tile's positions for the loop
   uint32_t bytes[kMaxEntries];
   if (stage) {
-    load_bytes(buf, posbuf, k, tile, tile_shift, bytes);
-    store_rows(bytes, k, k_pad, tile, tile_shift, vecs, lut, rowbuf);
+    load_first_bytes(buf, pos, m, t0, k, tile, tile_shift, bytes);
+    if (tid < tile) posbuf[tile + tid] = tile_pos(pos, m, t0 + step, tile, tid);
   }
+  __syncthreads();  // the lut
+  if (stage) store_rows(bytes, k, k_pad, tile, tile_shift, vecs, lut, rowbuf);
+  if (async_table) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   for (int it = 0; t0 + it * step < n_tiles; ++it) {
     const int64_t t = t0 + it * step;
@@ -413,19 +491,19 @@ int launch_global(const void* buf, const void* pos, int64_t m, int64_t k,
   return static_cast<int>(cudaGetLastError());
 }
 
-Plan plan(int k, int64_t h_dim) {
+// A plan of column slices hs wide and tiles of at most `reps` windows a
+// thread: a tile is a power of two, and its row indices, where `staged`
+// allows it, are staged when they fit kRowBufEntries.
+Plan make_plan(int k, int64_t h_dim, int hs, int reps_max,
+               bool staged = true) {
   Plan p{};
   const int64_t n_rows = static_cast<int64_t>(k) * kVocab;
-  const int64_t h8 = (h_dim + 7) / 8 * 8;
-  p.hs = 8;
-  while (p.hs < kMaxSlice && p.hs < h8) p.hs *= 2;
-  while (p.hs > 8 && n_rows * p.hs * 2 > kSliceBudget) p.hs /= 2;
-  p.slices = static_cast<int>((h_dim + p.hs - 1) / p.hs);
-  const int per_pass = kThreads / (p.hs / 8);
-  p.stage = k <= kStageK && per_pass * k <= kRowBufEntries;
-  // windows a thread takes a tile: a power of two, so is the tile
+  p.hs = hs;
+  p.slices = static_cast<int>((h_dim + hs - 1) / hs);
+  const int per_pass = kThreads / (hs / 8);
+  p.stage = staged && k <= kStageK && per_pass * k <= kRowBufEntries;
   int reps = 1;
-  while (2 * reps * per_pass <= kTileWindows &&
+  while (2 * reps <= reps_max && 2 * reps * per_pass <= kTileWindows &&
          (!p.stage || 2 * reps * per_pass * k <= kRowBufEntries)) {
     reps *= 2;
   }
@@ -435,6 +513,87 @@ Plan plan(int k, int64_t h_dim) {
            (p.stage ? 2 * static_cast<int64_t>(p.tile) * (8 + k_pad * 2)
                     : 0);
   return p;
+}
+
+// The persistent plan: the widest slice up to kMaxSlice columns whose
+// table fits kSliceBudget (two CTAs a SM at 512 columns), tiles of up to
+// kTileWindows windows.
+Plan plan(int k, int64_t h_dim) {
+  const int64_t n_rows = static_cast<int64_t>(k) * kVocab;
+  const int64_t h8 = (h_dim + 7) / 8 * 8;
+  int hs = 8;
+  while (hs < kMaxSlice && hs < h8) hs *= 2;
+  while (hs > 8 && n_rows * hs * 2 > kSliceBudget) hs /= 2;
+  return make_plan(k, h_dim, hs, kTileWindows);
+}
+
+int64_t plan_ctas(const Plan& p, int64_t m) {
+  return (m + p.tile - 1) / p.tile * p.slices;
+}
+
+// The batch plan, for m windows that the persistent plan spreads over too
+// few SMs: one CTA a tile. Slices of kBatchMinSlice columns, widened until
+// the CTAs fit one wave of kMinBlocks a SM (a narrow slice is little table
+// for a CTA to stage); tiles of one window a thread, doubled while every
+// SM still gets a CTA. Each thread reads its windows' bytes itself (they
+// hit L1): staging their row indices would cost two barriers and a round
+// trip through shared memory more than it saves at a few windows a thread.
+Plan batch_plan(int k, int64_t h_dim, int64_t m, int sms,
+                const Plan& persistent) {
+  const int64_t wave = static_cast<int64_t>(sms) * kMinBlocks;
+  int hs = persistent.hs < kBatchMinSlice ? persistent.hs : kBatchMinSlice;
+  while (hs < persistent.hs &&
+         plan_ctas(make_plan(k, h_dim, hs, kTileWindows, false), m) > wave) {
+    hs *= 2;
+  }
+  Plan p = make_plan(k, h_dim, hs, 1, false);
+  for (int reps = 2;; reps *= 2) {
+    const Plan wider = make_plan(k, h_dim, hs, reps, false);
+    if (wider.tile == p.tile || plan_ctas(wider, m) < sms) break;
+    p = wider;
+  }
+  return p;
+}
+
+// Which plan a launch took (v2p_window_layer1_last_plan)
+enum PlanKind { kPersistentPlan = 0, kBatchPlan = 1, kGlobalPlan = 2 };
+thread_local PlanKind last_plan = kPersistentPlan;
+
+// The windows a thread of plan p takes a tile
+int windows_a_thread(const Plan& p) {
+  return p.tile / (kThreads / (p.hs / 8));
+}
+
+// What a launch of m windows runs on a card of `sms` SMs holding `per_sm`
+// CTAs of the persistent plan each: where the persistent plan's tiles x
+// slices fill less than that one wave, the batch plan with one CTA a tile,
+// if its threads take fewer windows each than the persistent plan's (its
+// shorter CTAs are the point of it: with as many windows a thread, the
+// persistent plan's staged rows win) and at most kBatchMaxWindows; else
+// the persistent grid (the card full, never more CTAs than tiles).
+struct Choice {
+  Plan p;
+  PlanKind kind;
+  int64_t ctas;  // CTAs a column slice
+};
+
+Choice choose(int k, int64_t h_dim, int64_t m, const Plan& persistent,
+              int sms, int per_sm) {
+  Choice c{persistent, kPersistentPlan, 0};
+  const int64_t wave = static_cast<int64_t>(sms) * per_sm;
+  if (plan_ctas(persistent, m) < wave) {
+    const Plan batch = batch_plan(k, h_dim, m, sms, persistent);
+    const int w = windows_a_thread(batch);
+    if (w < windows_a_thread(persistent) && w <= kBatchMaxWindows) {
+      c.p = batch;
+      c.kind = kBatchPlan;
+    }
+  }
+  const int64_t n_tiles = (m + c.p.tile - 1) / c.p.tile;
+  c.ctas = c.kind == kBatchPlan ? n_tiles : wave / c.p.slices;
+  if (c.ctas < 1) c.ctas = 1;
+  if (c.ctas > n_tiles) c.ctas = n_tiles;
+  return c;
 }
 
 // The kernel's opt-in to kMaxSmem of dynamic shared memory, the SM count
@@ -479,20 +638,21 @@ int launch_k(const void* buf, const void* pos, int64_t m, int64_t k,
   if (k <= 0 || k > (1 << 30) || h_dim > (1 << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan p = plan(static_cast<int>(k), h_dim);
-  if (p.smem > kMaxSmem) {
+  const Plan persistent = plan(static_cast<int>(k), h_dim);
+  if (persistent.smem > kMaxSmem) {
+    last_plan = kGlobalPlan;
     return launch_global<Idx>(buf, pos, m, k, table, b1, h_dim, out, stream);
   }
   int sms = 0;
   int per_sm = 0;
-  const cudaError_t err = device_setup<Idx, K>(p.smem, &sms, &per_sm);
+  const cudaError_t err =
+      device_setup<Idx, K>(persistent.smem, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // CTAs a slice: the card full, never more than there are tiles
-  const int64_t n_tiles = (m + p.tile - 1) / p.tile;
-  int64_t ctas = static_cast<int64_t>(sms) * per_sm / p.slices;
-  if (ctas < 1) ctas = 1;
-  if (ctas > n_tiles) ctas = n_tiles;
-  const dim3 grid(static_cast<unsigned>(ctas),
+  const Choice c =
+      choose(static_cast<int>(k), h_dim, m, persistent, sms, per_sm);
+  const Plan& p = c.p;
+  last_plan = c.kind;
+  const dim3 grid(static_cast<unsigned>(c.ctas),
                   static_cast<unsigned>(p.slices));
   const bool vec_table = h_dim % 8 == 0 &&
                          reinterpret_cast<uintptr_t>(table) % 16 == 0;
@@ -543,3 +703,7 @@ extern "C" int v2p_window_layer1_i64(const void* buf, const void* pos,
                                      void* stream) {
   return launch<int64_t>(buf, pos, m, k, table, b1, h_dim, out, stream);
 }
+
+// The plan (PlanKind) of this host thread's last K3 launch that reached
+// one; launches nothing.
+extern "C" int v2p_window_layer1_last_plan() { return last_plan; }

@@ -256,10 +256,33 @@ def _launch_layer1(buf, pos, k: int, table, b1) -> torch.Tensor:
             "window scorer",
         )
     window_layer1.launches += 1
+    if lib.v2p_window_layer1_last_plan() == BATCH_PLAN:
+        window_layer1_batch.launches += 1
     return out
 
 
 window_layer1.launches = 0
+
+# K3's plans (csrc/scorer.cu, launch_k; v2p_window_layer1_last_plan
+# reports the last launch's): the persistent grid, the batch plan for row
+# counts the persistent grid spreads over too few SMs, and the table read
+# from device memory (k >= 692)
+PERSISTENT_PLAN, BATCH_PLAN, GLOBAL_PLAN = 0, 1, 2
+
+
+class LaunchCount:
+    """A count of the launches that took one path of a wrapper's kernel,
+    kept like a wrapper's ``launches``: its eager launches, plus, in the
+    training step's kernels (``train.STEP_KERNELS``), each captured step's
+    launches times its replays through ``train.launches``."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# K3's launches on its batch plan (a training step's batch takes it)
+window_layer1_batch = LaunchCount("window_layer1_batch")
 
 
 def _check_layer1_grad_args(buf, pos, k, h1, g) -> None:

@@ -98,15 +98,17 @@ from .scoring import (
     score_windows,
     window_layer1,
     window_layer1_backward,
+    window_layer1_batch,
 )
 from .step import step_prologue
 
 # steps run on a side stream before a capture
 CAPTURE_WARMUP = 3
 # the wrappers (and their launch counters) of the kernels a step launches
-STEP_KERNELS = (step_prologue, window_layer1, window_layer1_backward,
-                head_tail_forward, head_tail_backward, adam_update,
-                *DENSE_KERNELS, *FOLD_KERNELS)
+STEP_KERNELS = (step_prologue, window_layer1, window_layer1_batch,
+                window_layer1_backward, head_tail_forward,
+                head_tail_backward, adam_update, *DENSE_KERNELS,
+                *FOLD_KERNELS)
 # the replays of every captured step, and their host nanoseconds
 REPLAYS = TRACER.counter("v2p.train.replays")
 # the captured steps alive (a freed one's replays are in the eager counts)

@@ -57,6 +57,7 @@ SIGNATURES = {
     "v2p_validate_i64": (_P, _P, _P, _I64, _I64, _I64, _P, _P),
     "v2p_window_layer1_i32": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P),
     "v2p_window_layer1_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _P, _P),
+    "v2p_window_layer1_last_plan": (),
     "v2p_window_layer1_grad_i32": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,
                                    _P, _P, _P),
     "v2p_window_layer1_grad_i64": (_P, _P, _I64, _I64, _P, _P, _I64, _I64,

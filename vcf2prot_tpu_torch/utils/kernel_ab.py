@@ -1,10 +1,11 @@
-"""Compare versions of K1 (the executor), K2 (the validator), K5 (adam),
-K6 (the head's tail), K7 (the hidden layers) or K8 (the fold) on one card,
-or the training step with K9's per-step work in K5 against the same step
-with K9 at its head.
+"""Compare versions of K1 (the executor), K2 (the validator), K3 (the
+scorer's first layer), K5 (adam), K6 (the head's tail), K7 (the hidden
+layers) or K8 (the fold) on one card, or the training step with K9's
+per-step work in K5 against the same step with K9 at its head.
 
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k1 VCF FASTA OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k2 VCF FASTA OLD.cu NEW.cu [...]
+    python3 -m vcf2prot_tpu_torch.utils.kernel_ab k3 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k5 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k6 OLD.cu NEW.cu [...]
     python3 -m vcf2prot_tpu_torch.utils.kernel_ab k7 OLD.cu NEW.cu [...]
@@ -28,7 +29,16 @@ Versions are timed in the order A, B, ..., B, A: each time is the median of
 allocated once, printed with its share of the bound that ``utils/roofline.py``
 gives the case (the yardstick ``chip_smoke.py`` reports). It prints the
 card's name and power limit first, and exits non-zero if a version differs
-from the plain version.
+from the plain version. Without a card, or with a file it is given missing,
+it prints this usage and exits 2.
+
+K3's sources hold ``v2p_window_layer1_i64`` (the ABI of
+``csrc/scorer.cu``). No cohort: each version runs K3_SHAPES, (H, M, k)
+at a training batch, a dp replica's half batch and the chain's serving
+block, on windows laid out as a training batch's (``pos = m * k`` over
+seeded residues, 'X' and '.'), held bit for bit to
+``window_layer1_reference``, then timed A, B, ..., B, A in a CUDA graph
+of INNER launches, each time with its share of the bound.
 
 K5's sources hold ``v2p_adam`` (``csrc/adam.cu``; its first design is kept
 as ``chip_archive/adam_first.cu``, with the same signature), each given a
@@ -98,12 +108,16 @@ from . import roofline
 
 REPS, INNER = 10, 10
 ENTRIES = {"k1": "v2p_segmented_copy_i32", "k2": "v2p_validate_i32",
-           "k5": "v2p_adam",
+           "k3": "v2p_window_layer1_i64", "k5": "v2p_adam",
            "k6": ("v2p_head_tail_fwd", "v2p_head_tail_bwd"),
            "k7": ("v2p_dense_forward", "v2p_dense_backward_input",
                   "v2p_dense_backward_weight"),
            "k8": ("v2p_fold_forward", "v2p_fold_backward")}
 CHUNKS = (256 << 20, 128 << 20)
+# K3's shapes (H, M, k): a training batch and a dp replica's at both heads'
+# widths, and the chain's serving block
+K3_SHAPES = ((128, 4096, 9), (512, 4096, 9), (128, 2048, 9), (512, 2048, 9),
+             (128, 524288, 9), (512, 524288, 9))
 # K5's heads (hidden width, depth) and its checked steps a version
 K5_HEADS = {"128x1": (128, 1), "512x3": (512, 3)}
 K5_STEPS = 3
@@ -302,6 +316,65 @@ def ab_k2(paths, fns, blob, flat) -> int:
             roofline.bound_ms(roofline.validator_bytes(
                 n, dst.element_size())))
     return bad
+
+
+def ab_k3(paths, fns):
+    """K3's versions (``fns``, their ``v2p_window_layer1_i64``) at
+    K3_SHAPES: each checked bit for bit against ``window_layer1_reference``,
+    then timed A, B, ..., B, A in a CUDA graph. Prints a line a shape;
+    returns ``(versions that disagreed, {(H, M, k): {path: [ms, ...]}})``."""
+    import numpy as np
+
+    from ..downstream import scoring as sc
+    from ..downstream.peptides import VOCAB
+
+    order = list(range(len(paths)))
+    order += order[::-1]
+    rng = np.random.default_rng(3)
+    alphabet = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX.", np.uint8)
+    bad, out = 0, {}
+    for h_dim, m, k in K3_SHAPES:
+        head = sc.ScoringHead.from_params(
+            sc.init_params(k, seed=h_dim, hidden=h_dim)).to("cuda")
+        buf = torch.from_numpy(
+            alphabet[rng.integers(0, len(alphabet), m * k)]).to("cuda")
+        pos = torch.arange(m, dtype=torch.int64, device="cuda") * k
+        want = sc.window_layer1_reference(buf, pos, k, head.table, head.b1)
+        got = torch.empty_like(want)
+        times = {i: [] for i in order}
+        for i in order:
+
+            def launch(fn=fns[i]):
+                return fn(buf.data_ptr(), pos.data_ptr(), m, k,
+                          head.table.data_ptr(), head.b1.data_ptr(), h_dim,
+                          got.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream)
+
+            got.zero_()
+            rc = launch()
+            torch.cuda.synchronize()
+            if rc:
+                raise RuntimeError(f"{paths[i]}: launch failed, "
+                                   f"cudaError_t {rc}")
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                bad += 1
+                print(f"{paths[i]} K3 H {h_dim} M {m} k {k}: differs from "
+                      f"the plain version")
+            times[i].append(graph_ms(launch))
+        bound_ms, by = roofline.bound_ms(
+            roofline.scorer_bytes(m, h_dim, pos.element_size(), m * k,
+                                  k * VOCAB * h_dim),
+            roofline.scorer_ops(m, k, h_dim))
+        out[(h_dim, m, k)] = {paths[i]: times[i] for i in range(len(paths))}
+        print(f"K3 H {h_dim} M {m} k {k} (in a CUDA graph, ms, A B B A): "
+              + "; ".join(f"{paths[i]} " + " / ".join(
+                  f"{t:.4f} ({100 * bound_ms / t:.1f}%)" for t in times[i])
+                          for i in range(len(paths)))
+              + f" of the {bound_ms:.6f} ms bound by {by} (equal to the "
+              f"plain version unless said above)")
+        del head, buf, pos, want, got
+        torch.cuda.empty_cache()
+    return bad, out
 
 
 def ab_k5(paths, fns, lr: float = 1e-3):
@@ -814,14 +887,16 @@ def main(argv) -> int:
     if argv[:1] == ["k9"] and torch.cuda.is_available():
         print(card())
         return 1 if ab_k9()[0] else 0
-    no_cohort = argv[:1] in (["k5"], ["k6"], ["k7"], ["k8"])
+    no_cohort = argv[:1] in (["k3"], ["k5"], ["k6"], ["k7"], ["k8"])
     if (not torch.cuda.is_available() or len(argv) < (2 if no_cohort else 4)
-            or argv[0] not in ENTRIES):
+            or argv[0] not in ENTRIES
+            or not all(os.path.isfile(path) for path in argv[1:])):
         print(__doc__, file=sys.stderr)
         return 2
     print(card())
     if no_cohort:
-        run = {"k5": ab_k5, "k6": ab_k6, "k7": ab_k7, "k8": ab_k8}[argv[0]]
+        run = {"k3": ab_k3, "k5": ab_k5, "k6": ab_k6, "k7": ab_k7,
+               "k8": ab_k8}[argv[0]]
         with tempfile.TemporaryDirectory(prefix="kernel_ab_") as outdir:
             fns = build_all(argv[1:], ENTRIES[argv[0]], outdir)
             return 1 if run(argv[1:], fns)[0] else 0
