@@ -11,7 +11,12 @@ reading of each number by side, and writes them all to ``--out``. The
 program runs as a run of the cell runs it, with a window of one fit.
 Sides: ``program``, the control ``fp8``, and the faults ``unchanged``,
 ``half``, ``answer`` and ``wrap`` (:meth:`perfbench.kinds.fit.Cell.
-reference`).
+reference`). The chain's sides are ``program``, ``fp8``, ``shifted``,
+``hapswap`` and ``top199`` (:meth:`perfbench.kinds.chain.Cell.side`).
+
+One loop serves every kind: a kind's ``Cell`` may give the rows of a side
+itself (``Cell.side(side, reference)``), and its module the comparison
+(``numbers``, ``detail``); without them the fit's are used.
 """
 import argparse
 import json
@@ -38,28 +43,42 @@ def readings(cell: str, seeds, sides, device: str = "cuda",
     bench = bench or run.load_json(os.path.join(ROOT, "BENCHMARK.json"))
     parts = run.cell_parts(bench, cell, base)
     kind = run.load_module(parts["kind"])
+    numbers = getattr(kind, "numbers", compare.numbers)
+    detail_of = getattr(kind, "detail", compare.detail)
     out = []
     for seed in seeds:
         c = kind.Cell(parts["config"], parts["traffic"], seed, device)
         c.make_inputs()
-        ref = c.reference()
-        for side in sides:
-            t = time.perf_counter()
-            if side == "program":
-                c.setup()
-                c.window(0.0, False)
-                got = c.result()
-                c.free()
-            else:
-                got = c.reference(*REFERENCE_SIDES[side])
-            row = {"seed": seed, "side": side,
-                   **compare.numbers(got, ref),
-                   "seconds": time.perf_counter() - t}
-            if detail:
-                row["detail"] = compare.detail(got, ref)
-            print(json.dumps(row), flush=True)
-            out.append(row)
+        try:
+            ref = c.reference()
+            for side in sides:
+                t = time.perf_counter()
+                got = _side(c, side, ref)
+                row = {"seed": seed, "side": side, **numbers(got, ref),
+                       "seconds": time.perf_counter() - t}
+                if detail:
+                    row["detail"] = detail_of(got, ref)
+                print(json.dumps(row), flush=True)
+                out.append(row)
+        finally:
+            if hasattr(c, "close"):
+                c.close()
     return out
+
+
+def _side(c, side: str, ref):
+    """The rows of one side: the kind's own (``Cell.side``) or the fit's:
+    the program as a run of the cell runs it with a window of one fit, or
+    the reference in the control's precision or with a fault planted."""
+    if hasattr(c, "side"):
+        return c.side(side, ref)
+    if side == "program":
+        c.setup()
+        c.window(0.0, False)
+        got = c.result()
+        c.free()
+        return got
+    return c.reference(*REFERENCE_SIDES[side])
 
 
 def summary(rows: list) -> dict:

@@ -86,12 +86,15 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     kind = load_module(parts["kind"])
     run = kind.Cell(parts["config"], parts["traffic"], seed, device)
     run.setup()
-    setup_s = time.perf_counter() - t0
+    # the seconds in which set-up made or read the benchmark's own input
+    # files (a user's, before any run) are not the program's set-up
+    setup_s = time.perf_counter() - t0 - getattr(run, "setup_apart_s", 0.0)
     counters = run.window(seconds, trace)
     cuda = torch.device(device).type == "cuda"
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     ctx = {"config": parts["config"], "traffic": parts["traffic"],
-           "counters": counters, "setup_s": setup_s, "trace": run.trace}
+           "counters": counters, "setup_s": setup_s, "trace": run.trace,
+           "memory_peak_bytes": peak}
     metrics = {}
     for m in parts["per_layer" if trace else "end_to_end"]:
         value = load_module(os.path.join(HERE, "metrics",

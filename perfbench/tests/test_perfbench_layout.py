@@ -54,15 +54,21 @@ def test_names_units_and_keys(bench):
     assert len(names) == len(set(names))
 
 
+# each traffic kind's numbers compared, and those compared exactly
+COMPARED = {"fit": ({"loss1_gap", "grad_gap", "change_gap",
+                     "epoch1_loss_gap", "refit_diff"}, {"refit_diff"}),
+            "chain": ({"rows_mismatch", "score_gap", "repass_diff"},
+                      {"rows_mismatch", "repass_diff"})}
+
+
 def test_every_cell_finds_its_files_by_name(bench):
     e2e = {m["name"] for m in bench["end_to_end"]}
     for w in bench["workloads"]:
         parts = run.cell_parts(bench, w["name"])
         assert os.path.exists(parts["kind"])
-        assert set(parts["limits"]) == {"loss1_gap", "grad_gap",
-                                        "change_gap", "epoch1_loss_gap",
-                                        "refit_diff"}
-        assert parts["limits"]["refit_diff"] == 0
+        numbers, exact = COMPARED[parts["traffic"]["kind"]]
+        assert set(parts["limits"]) == numbers
+        assert all(parts["limits"][n] == 0 for n in exact)
         assert w["chips"] in (1, 4)
         reported = {m["name"] for m in parts["end_to_end"]}
         assert "setup_s" in reported and len(reported) >= 2
